@@ -1,0 +1,396 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (distributed_groth16_tpu_torch) on
+one NVIDIA card — the quickest proof that the port still starts on the GPU.
+
+    python3 chip_smoke.py        # from the root of a checkout; one card
+
+Phases (any failure raises; the script then exits non-zero and prints no
+result line):
+  1. device: the card's name, power limit and clocks;
+  2. build: nvcc compiles the kernels of distributed_groth16_tpu_torch/
+     csrc/ for sm_90a (one process per source, in parallel);
+  3. kernels: each hand-written kernel against its plain PyTorch version
+     on the card, at the shapes the main path gives it, compared limb for
+     limb (tolerance zero: these are integers), and timed;
+  4. main path: the SHA-256 single-block circuit (m = 2^15) through
+     setup -> CompiledR1CS -> prove_single (cold, warm, and r, s != 0) ->
+     verify, with the kernels' launch counters zeroed just before and read
+     just after;
+  5. byte identity: at m = 2^11 the card's proof equals the CPU's (plain
+     versions) for the same key and witness.
+
+Output: phase lines, then a {"kernels": [...]} line, the nvidia-smi
+name/power-limit line, and last {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+# 32-bit integer multiply(-add) results per clock per SM on compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput table); the clock is the card's max SM clock from nvidia-smi
+IMAD_PER_SM_CLOCK = 64
+# H100 SXM HBM3 bandwidth (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+# 32-bit multiply-adds of one 8-word CIOS Montgomery product: 128
+# 32x32->64 products (a_j*b_i and m*p_j, two halves each) + 8 for m
+IMAD_PER_FQ_MUL = 2 * 128 + 8
+FQ_MULS = {"add": 14, "double": 9}  # per G1 point (RCB16); G2 triples
+
+SOURCES = {
+    "limb_group": "distributed_groth16_tpu_torch/csrc/limb_group.cu",
+    "ntt_small": "distributed_groth16_tpu_torch/csrc/ntt_small.cu",
+}
+REPLACES = {
+    "add": "distributed_groth16_tpu/ops/limb_kernels.py:568",
+    "double": "distributed_groth16_tpu/ops/limb_kernels.py:599",
+    "horner": "distributed_groth16_tpu/ops/limb_kernels.py:694",
+    "ntt_small": "distributed_groth16_tpu/ops/ntt_limb.py:153",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms per call over `reps` calls after one warm-up call."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+class Bound:
+    """Least time for a kernel's work: max(bytes / HBM rate, 32-bit
+    multiply-adds / integer peak)."""
+
+    def __init__(self, sms: int, clock_mhz: float):
+        self.imad_per_s = sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6
+
+    def __call__(self, nbytes: float, fq_muls: float) -> tuple[float, str]:
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = fq_muls * IMAD_PER_FQ_MUL / self.imad_per_s
+        if t_ops >= t_bytes:
+            return t_ops * 1e3, "operations"
+        return t_bytes * 1e3, "bytes"
+
+
+def compare(name, kern, plain) -> int:
+    if kern.shape != plain.shape:
+        raise AssertionError(f"{name}: shape {kern.shape} != {plain.shape}")
+    err = int((kern.long() - plain.long()).abs().max().item())
+    if err:
+        raise AssertionError(f"{name}: kernel differs from plain, {err}")
+    return err
+
+
+def random_fr_limbs(rng, shape, bound: int):
+    """int32 limb-major (16,) + shape of uniform values below `bound`."""
+    import numpy as np
+
+    n = int(np.prod(shape))
+    raw = rng.integers(0, 2**63, size=(n, 5), dtype=np.int64)
+    vals = [
+        int.from_bytes(row.tobytes(), "little") % bound for row in raw
+    ]
+    buf = b"".join(v.to_bytes(32, "little") for v in vals)
+    limbs = np.frombuffer(buf, dtype="<u2").astype(np.int32)
+    return limbs.reshape(n, 16).T.reshape((16,) + tuple(shape)).copy()
+
+
+def phase_kernels(dev, bound, rng, n=32 * 16384, ntt=((256, 128), (128, 256))):
+    """Phase 3: every kernel against its plain version on the card, by
+    default at the main path's shapes: n columns is the first tree level of
+    a 2^15-point MSM over 32 windows, and (S, L) the two halves of a 2^15
+    transform."""
+    import torch
+
+    from distributed_groth16_tpu_torch.ops.fixedbase import fixed_base_mul
+    from distributed_groth16_tpu_torch.ops.limb_kernels import lg1, lg2
+    from distributed_groth16_tpu_torch.ops.msm import encode_scalars_std
+    from distributed_groth16_tpu_torch.ops.constants import R
+    from distributed_groth16_tpu_torch.ops.ntt_limb import _small
+
+    entries = {}
+    for gname, g in (("g1", lg1()), ("g2", lg2())):
+        RR, f = g.ROWS, 3 if g.deg == 2 else 1
+        scal = encode_scalars_std(
+            [int.from_bytes(rng.bytes(40), "little") % R for _ in range(4096)],
+            dev,
+        )
+        base = g.from_rowmajor(fixed_base_mul(gname, scal))  # (RR, 4096)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        P = base[:, torch.randint(4096, (n,), device=dev, generator=gen)]
+        Q = base[:, torch.randint(4096, (n,), device=dev, generator=gen)]
+        inf = torch.as_tensor(g.inf_col, device=dev)
+        Q[:, :1024] = P[:, :1024]  # P + P
+        P[:, 1024:2048] = inf
+        Q[:, 2048:3072] = inf
+        P[:, 3072:3100] = inf
+        Q[:, 3072:3100] = inf
+        P, Q = P.contiguous(), Q.contiguous()
+        red = g.add(P, Q)  # redundant [0, 2p) operands for the next checks
+        cases = {
+            "add": (lambda: g.add(P, Q), lambda: g.plain_add(P, Q)),
+            "add_redundant": (lambda: g.add(red, P),
+                              lambda: g.plain_add(red, P)),
+            "double": (lambda: g.double(red), lambda: g.plain_double(red)),
+        }
+        for cname, (kern, plain) in cases.items():
+            err = compare(f"{cname}_{gname}", kern(), plain())
+            kind = cname.split("_")[0]
+            if cname == "add_redundant":
+                continue
+            k_ms = cuda_ms(kern, 5)
+            p_ms = cuda_ms(plain, 1)
+            nbytes = (3 if kind == "add" else 2) * RR * n * 4
+            b_ms, b_by = bound(nbytes, FQ_MULS[kind] * f * n)
+            entries[f"limb_{kind}_{gname}"] = dict(
+                shape=[RR, n], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, kind=kind,
+                source=SOURCES["limb_group"],
+            )
+        W, c = 32, 8
+        s = red[:, :W].contiguous()
+        err = compare(f"horner_{gname}", g.horner(s, c), g.plain_horner(s, c))
+        k_ms = cuda_ms(lambda: g.horner(s, c), 3)
+        p_ms = cuda_ms(lambda: g.plain_horner(s, c), 1)
+        muls = (W - 1) * (c * FQ_MULS["double"] + FQ_MULS["add"]) * f
+        b_ms, b_by = bound(RR * (W + 1) * 4, muls)
+        entries[f"limb_horner_{gname}"] = dict(
+            shape=[RR, W], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+            bound_by=b_by, max_abs_err=err, kind="horner",
+            source=SOURCES["limb_group"],
+        )
+        log(f"phase kernels {gname}: ok")
+
+    ntt_runs = []
+    for S, L in ntt:
+        # values below 2p: the second stage of a transform sees redundant
+        # inputs after the twiddle multiply
+        x = torch.as_tensor(random_fr_limbs(rng, (S, L), 2 * R), device=dev)
+        for inverse in (False, True):
+            nt = _small(S, inverse)
+            err = compare(f"ntt_small {S}x{L} inv={inverse}", nt(x),
+                          nt.plain(x))
+            k_ms = cuda_ms(lambda: nt(x), 10)
+            p_ms = cuda_ms(lambda: nt.plain(x), 1)
+            logS = S.bit_length() - 1
+            nbytes = 2 * 16 * S * L * 4 + 16 * logS * (S // 2) * 4
+            b_ms, b_by = bound(nbytes, (S // 2) * logS * L)
+            ntt_runs.append(dict(
+                shape=[16, S, L], inverse=inverse, ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            ))
+    fwd = [r for r in ntt_runs if not r["inverse"]]
+    entries["ntt_small"] = dict(
+        shape=[fwd[0]["shape"], fwd[1]["shape"]],
+        # one 2^15 transform = the two forward launches above
+        ms=fwd[0]["ms"] + fwd[1]["ms"],
+        plain_ms=fwd[0]["plain_ms"] + fwd[1]["plain_ms"],
+        bound_ms=fwd[0]["bound_ms"] + fwd[1]["bound_ms"],
+        bound_by=fwd[0]["bound_by"], max_abs_err=0, kind="ntt_small",
+        source=SOURCES["ntt_small"],
+    )
+    log("phase kernels ntt: " + json.dumps(ntt_runs))
+    return entries
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sha256_abc():
+    from distributed_groth16_tpu_torch.frontend.sha256 import sha256_circuit
+
+    cs, pubs = sha256_circuit(b"abc")
+    r1cs, z = cs.finish()
+    return r1cs, z, pubs
+
+
+def phase_main_path(dev, circuit=sha256_abc, log_m=15):
+    """Phase 4: a circuit (by default SHA-256 at m = 2^15) through the
+    port's entry points on `dev`."""
+    import numpy as np
+    import torch
+
+    from distributed_groth16_tpu_torch.models.groth16 import (
+        CompiledR1CS, prove_single, setup, verify,
+    )
+    from distributed_groth16_tpu_torch.ops import _cuda
+    from distributed_groth16_tpu_torch.ops.constants import R
+    from distributed_groth16_tpu_torch.ops.field import fr
+
+    r1cs, z, pubs = circuit()
+    log(f"main path: constraints={r1cs.num_constraints} "
+        f"instances={r1cs.num_instance} wires={r1cs.num_wires}")
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pk = setup(r1cs, seed=42, device=dev)
+    sync(dev)
+    t_setup = (time.perf_counter() - t0) * 1e3
+    assert pk.domain_size == 1 << log_m, pk.domain_size
+    t0 = time.perf_counter()
+    comp = CompiledR1CS(r1cs, dev)
+    z_mont = fr().encode(z, dev)
+    sync(dev)
+    t_compile = (time.perf_counter() - t0) * 1e3
+    cold = {}
+    proof0 = prove_single(pk, comp, z_mont, timings=cold)
+    before = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    warm = {}
+    t0 = time.perf_counter()
+    proof1 = prove_single(pk, comp, z_mont, timings=warm)
+    t_warm = (time.perf_counter() - t0) * 1e3
+    per_proof = {k: v.launches - before[k] for k, v in _cuda.KERNELS.items()}
+    rng = np.random.default_rng(2024)
+    r = int.from_bytes(rng.bytes(40), "little") % R
+    s = int.from_bytes(rng.bytes(40), "little") % R
+    proof2 = prove_single(pk, comp, z_mont, r=r, s=s)
+    sync(dev)
+    launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    if proof0 != proof1:
+        raise AssertionError("cold and warm proofs differ")
+    if not verify(pk.vk, proof1, pubs):
+        raise AssertionError("r = s = 0 proof does not verify")
+    if not verify(pk.vk, proof2, pubs):
+        raise AssertionError("r, s != 0 proof does not verify")
+    for k in ("limb_add_g1", "limb_add_g2", "limb_horner_g1",
+              "limb_horner_g2", "ntt_small"):
+        if per_proof[k] == 0 and dev.type == "cuda":
+            raise AssertionError(f"prove_single never launched {k}")
+    log("main path phases ms: " + json.dumps(dict(
+        setup=t_setup, compile_r1cs=t_compile, cold=cold,
+        warm=warm, warm_total=t_warm,
+    )))
+    log(f"main path launches per warm proof: {json.dumps(per_proof)}")
+    log(f"main path launches (setup + 3 proofs): {json.dumps(launches)}")
+    log(f"main path peak device memory: {peak} bytes")
+    log("main path: both proofs verify")
+    return launches
+
+
+def phase_byte_identity(dev, length=2046, log_m=11):
+    """Phase 5: at m = 2^11 the card's proof equals the CPU's (the CPU
+    runs every kernel's plain version) for one key and witness."""
+    from distributed_groth16_tpu_torch.frontend.r1cs import mult_chain_circuit
+    from distributed_groth16_tpu_torch.models.groth16 import (
+        CompiledR1CS, prove_single, setup, verify,
+    )
+    from distributed_groth16_tpu_torch.ops.field import fr
+
+    r1cs, z = mult_chain_circuit(3, length).finish()
+    pk = setup(r1cs, seed=11, device=dev)
+    assert pk.domain_size == 1 << log_m, pk.domain_size
+    proof_gpu = prove_single(pk, CompiledR1CS(r1cs, dev), fr().encode(z, dev))
+    t0 = time.perf_counter()
+    proof_cpu = prove_single(
+        pk.to("cpu"), CompiledR1CS(r1cs, "cpu"), fr().encode(z, "cpu")
+    )
+    t_cpu = time.perf_counter() - t0
+    if proof_bytes(proof_gpu) != proof_bytes(proof_cpu):
+        raise AssertionError("card and CPU proofs differ at m = 2^11")
+    if not verify(pk.vk, proof_gpu, z[1 : r1cs.num_instance]):
+        raise AssertionError("m = 2^11 proof does not verify")
+    log(f"byte identity m=2^11: card == cpu ({len(proof_bytes(proof_gpu))} "
+        f"bytes), cpu prove {t_cpu:.1f} s")
+
+
+def proof_bytes(proof) -> bytes:
+    """Affine coordinates as 32-byte little-endian words, a | b | c."""
+    words = [*proof.a, *proof.b[0], *proof.b[1], *proof.c]
+    return b"".join(int(w).to_bytes(32, "little") for w in words)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        from distributed_groth16_tpu_torch.ops import _cuda
+    except ImportError as exc:
+        print(f"chip_smoke: port package not found: {exc}", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi("name,power.limit")
+    clock = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"device: {name} | {smi} | {sms} SMs | max SM clock {clock} MHz | "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+    bound = Bound(sms, clock)
+
+    t0 = time.perf_counter()
+    _cuda.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    for src, text in _cuda.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {src}: {line.strip()}")
+    for k in _cuda.KERNELS.values():
+        _cuda.library(k.source)
+
+    rng = np.random.default_rng(42)
+    entries = phase_kernels(dev, bound, rng)
+    launches = phase_main_path(dev)
+    phase_byte_identity(dev)
+
+    # kernel 2's device function runs inside Horner (kernel 3); as a launch
+    # of its own it serves only the MPC path, so the main path
+    # launches it no time: it is held and timed above, and listed apart
+    on_path, off_path = [], []
+    for key, e in entries.items():
+        row = dict(
+            name=key, route="cuda", source=e["source"],
+            replaces=REPLACES[e["kind"]], shape=e["shape"],
+            launches=launches[key], max_abs_err=e["max_abs_err"],
+            match=e["max_abs_err"] == 0, ms=e["ms"], kernel_ms=e["ms"],
+            plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+            bound_by=e["bound_by"], library_ms=None,
+        )
+        (off_path if e["kind"] == "double" else on_path).append(row)
+    for row in on_path:
+        if row["launches"] == 0:
+            raise AssertionError(f"main path never launched {row['name']}")
+    print(json.dumps({"kernels": on_path, "off_path_kernels": off_path}))
+    print(nvidia_smi("name,power.limit"))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
