@@ -17,18 +17,29 @@ result line):
      verify, with the kernels' launch counters zeroed just before and read
      just after;
   5. byte identity: at m = 2^11 the card's proof equals the CPU's (plain
-     versions) for the same key and witness.
+     versions) for the same key and witness;
+  6. MPC path: phase 4's key saved and loaded as the proof service loads
+     it, packed in the exponent for l = 2 (n = 8 parties, kernels 1 and 2
+     through ladder_apply), the QAP and witness shares packed, one 8-party
+     round over LocalSimNet (d_fft, the local tree MSMs with kernels 1 and
+     3, the king's unpack), reassemble_proof -> verify; the proof equals
+     phase 4's prove_single proof byte for byte; then a round at
+     r, s != 0 that must verify. Counters zeroed before, read after.
 
-Output: phase lines, then a {"kernels": [...]} line, the nvidia-smi
+Output: phase lines, then a {"kernels": [...]} line (launches on the main
+path and, as launches_mpc, on the MPC path), the nvidia-smi
 name/power-limit line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from contextlib import contextmanager
 
 # 32-bit integer multiply(-add) results per clock per SM on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
@@ -118,11 +129,43 @@ def random_fr_limbs(rng, shape, bound: int):
     return limbs.reshape(n, 16).T.reshape((16,) + tuple(shape)).copy()
 
 
-def phase_kernels(dev, bound, rng, n=32 * 16384, ntt=((256, 128), (128, 256))):
+def ladder_shapes(r1cs, m: int, l: int = 2) -> dict:
+    """(B, o, K) of ladder_apply's widest launch per group when
+    pack_proving_key packs this circuit's key for n = 4l parties: B =
+    ceil(k/l) chunks of the query, o = n outputs, K = 2l bases with GLV
+    (G1) or l without (G2); it adds over B*o*K columns and doubles over
+    B*K. G1's widest query is h_query (k = m); G2's only one is
+    b_g2_query[1:] (k = num_wires - 1)."""
+    n = 4 * l
+    b1, b2 = -(-m // l), -(-(r1cs.num_wires - 1) // l)
+    return {"g1": (b1, n, 2 * l), "g2": (b2, n, l)}
+
+
+def point_columns(g, base, n, dev, seed):
+    """(ROWS, n) points drawn from `base`, with the edge cases of the
+    complete formulas mixed in: P + P, infinity on either side, both."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    P = base[:, torch.randint(base.shape[1], (n,), device=dev, generator=gen)]
+    Q = base[:, torch.randint(base.shape[1], (n,), device=dev, generator=gen)]
+    inf = torch.as_tensor(g.inf_col, device=dev)
+    Q[:, :1024] = P[:, :1024]  # P + P
+    P[:, 1024:2048] = inf
+    Q[:, 2048:3072] = inf
+    P[:, 3072:3100] = inf
+    Q[:, 3072:3100] = inf
+    return P.contiguous(), Q.contiguous()
+
+
+def phase_kernels(dev, bound, rng, ladder, n=32 * 16384,
+                  ntt=((256, 128), (128, 256))):
     """Phase 3: every kernel against its plain version on the card, by
     default at the main path's shapes: n columns is the first tree level of
     a 2^15-point MSM over 32 windows, and (S, L) the two halves of a 2^15
-    transform."""
+    transform. `ladder` maps each group to ladder_apply's (add, double)
+    columns on the MPC path (ladder_shapes): kernels 1 and 2 are held and
+    timed there too."""
     import torch
 
     from distributed_groth16_tpu_torch.ops.fixedbase import fixed_base_mul
@@ -130,6 +173,13 @@ def phase_kernels(dev, bound, rng, n=32 * 16384, ntt=((256, 128), (128, 256))):
     from distributed_groth16_tpu_torch.ops.msm import encode_scalars_std
     from distributed_groth16_tpu_torch.ops.constants import R
     from distributed_groth16_tpu_torch.ops.ntt_limb import _small
+
+    def measure(kind, RR, f, cols, kern, plain, err, reps=5):
+        nbytes = (3 if kind == "add" else 2) * RR * cols * 4
+        b_ms, b_by = bound(nbytes, FQ_MULS[kind] * f * cols)
+        return dict(shape=[RR, cols], ms=cuda_ms(kern, reps),
+                    plain_ms=cuda_ms(plain, 1), bound_ms=b_ms, bound_by=b_by,
+                    max_abs_err=err)
 
     entries = {}
     for gname, g in (("g1", lg1()), ("g2", lg2())):
@@ -139,16 +189,7 @@ def phase_kernels(dev, bound, rng, n=32 * 16384, ntt=((256, 128), (128, 256))):
             dev,
         )
         base = g.from_rowmajor(fixed_base_mul(gname, scal))  # (RR, 4096)
-        gen = torch.Generator(device=dev).manual_seed(1)
-        P = base[:, torch.randint(4096, (n,), device=dev, generator=gen)]
-        Q = base[:, torch.randint(4096, (n,), device=dev, generator=gen)]
-        inf = torch.as_tensor(g.inf_col, device=dev)
-        Q[:, :1024] = P[:, :1024]  # P + P
-        P[:, 1024:2048] = inf
-        Q[:, 2048:3072] = inf
-        P[:, 3072:3100] = inf
-        Q[:, 3072:3100] = inf
-        P, Q = P.contiguous(), Q.contiguous()
+        P, Q = point_columns(g, base, n, dev, 1)
         red = g.add(P, Q)  # redundant [0, 2p) operands for the next checks
         cases = {
             "add": (lambda: g.add(P, Q), lambda: g.plain_add(P, Q)),
@@ -161,14 +202,34 @@ def phase_kernels(dev, bound, rng, n=32 * 16384, ntt=((256, 128), (128, 256))):
             kind = cname.split("_")[0]
             if cname == "add_redundant":
                 continue
-            k_ms = cuda_ms(kern, 5)
-            p_ms = cuda_ms(plain, 1)
-            nbytes = (3 if kind == "add" else 2) * RR * n * 4
-            b_ms, b_by = bound(nbytes, FQ_MULS[kind] * f * n)
             entries[f"limb_{kind}_{gname}"] = dict(
-                shape=[RR, n], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=err, kind=kind,
+                measure(kind, RR, f, n, kern, plain, err), kind=kind,
                 source=SOURCES["limb_group"],
+            )
+        # ladder_apply's shapes on the MPC path: the accumulator add over
+        # (ROWS, B*o*K) and the base doubling over (ROWS, B*K), on
+        # redundant operands as the ladder feeds them
+        B, o, K = ladder[gname]
+        n_add, n_dbl = B * o * K, B * K
+        LP, LQ = point_columns(g, base, n_add, dev, 2)
+        lred = g.add(LP, LQ)
+        dred = lred[:, :n_dbl].contiguous()
+        for kind, kern, plain in (
+            ("add", lambda: g.add(lred, LQ), lambda: g.plain_add(lred, LQ)),
+            ("double", lambda: g.double(dred), lambda: g.plain_double(dred)),
+        ):
+            err = compare(f"ladder {kind}_{gname}", kern(), plain())
+            entries[f"limb_{kind}_{gname}"]["ladder"] = measure(
+                kind, RR, f, n_add if kind == "add" else n_dbl, kern, plain,
+                err,
+            )
+        # without GLV signs (G2) the ladder's addend (ROWS, B, 1, K) is
+        # broadcast to the accumulator, and the add wrapper copies it to
+        # (ROWS, B*o*K) once per ladder step: the time of that copy
+        if gname == "g2":
+            addend = dred.reshape(RR, B, 1, K)
+            entries["limb_add_g2"]["ladder"]["broadcast_copy_ms"] = cuda_ms(
+                lambda: addend.expand(RR, B, o, K).reshape(RR, -1), 5
             )
         W, c = 32, 8
         s = red[:, :W].contiguous()
@@ -223,6 +284,35 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+@contextmanager
+def probes(dev, targets: dict):
+    """While active, each callable named in `targets` (label -> (owner,
+    attribute)) adds the wall ms of its calls, device drained before and
+    after, to the yielded dict under its label. The targets must not call
+    one another, so the totals are disjoint."""
+    totals = {label: 0.0 for label in targets}
+    saved = []
+    for label, (owner, name) in targets.items():
+        fn = getattr(owner, name)
+
+        def wrapped(*a, _fn=fn, _label=label, **kw):
+            sync(dev)
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                sync(dev)
+                totals[_label] += (time.perf_counter() - t0) * 1e3
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrapped)
+    try:
+        yield totals
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
 def sha256_abc():
     from distributed_groth16_tpu_torch.frontend.sha256 import sha256_circuit
 
@@ -231,9 +321,11 @@ def sha256_abc():
     return r1cs, z, pubs
 
 
-def phase_main_path(dev, circuit=sha256_abc, log_m=15):
-    """Phase 4: a circuit (by default SHA-256 at m = 2^15) through the
-    port's entry points on `dev`."""
+def phase_main_path(dev, circuit, log_m=15):
+    """Phase 4: a circuit (r1cs, z, pubs), by default SHA-256 at m = 2^15,
+    through the port's entry points on `dev`. Returns the launch counts and
+    what phase 6 reuses: the circuit, key, compiled R1CS, witness and the
+    r = s = 0 proof."""
     import numpy as np
     import torch
 
@@ -244,7 +336,7 @@ def phase_main_path(dev, circuit=sha256_abc, log_m=15):
     from distributed_groth16_tpu_torch.ops.constants import R
     from distributed_groth16_tpu_torch.ops.field import fr
 
-    r1cs, z, pubs = circuit()
+    r1cs, z, pubs = circuit
     log(f"main path: constraints={r1cs.num_constraints} "
         f"instances={r1cs.num_instance} wires={r1cs.num_wires}")
     for k in _cuda.KERNELS.values():
@@ -294,6 +386,137 @@ def phase_main_path(dev, circuit=sha256_abc, log_m=15):
     log(f"main path launches (setup + 3 proofs): {json.dumps(launches)}")
     log(f"main path peak device memory: {peak} bytes")
     log("main path: both proofs verify")
+    return launches, dict(r1cs=r1cs, pubs=pubs, pk=pk, comp=comp,
+                          z_mont=z_mont, proof=proof1)
+
+
+def phase_mpc(dev, ctx, l=2):
+    """Phase 6: the MPC prover as the proof service runs it for an
+    "mpc_prove" job: the key loaded from its .npz (no dealer scalars, so
+    packed in the exponent), QAP and witness shares, one n = 4l party round
+    over LocalSimNet, reassembly and verification. The r = s = 0 proof must
+    equal phase 4's prove_single proof byte for byte; a second round at
+    r, s != 0 must verify. Returns the launch counts of the r = s = 0
+    pack and round."""
+    import numpy as np
+    import torch
+
+    from distributed_groth16_tpu_torch.models.groth16 import (
+        ProvingKey, distributed_prove_party, pack_from_witness,
+        pack_proving_key, public_prove_consts, reassemble_proof, verify,
+    )
+    from distributed_groth16_tpu_torch.ops import _cuda
+    from distributed_groth16_tpu_torch.ops.constants import R
+    from distributed_groth16_tpu_torch.parallel.net import (
+        simulate_network_round,
+    )
+    from distributed_groth16_tpu_torch.parallel.pss import pss
+
+    r1cs, pubs, comp, z_mont = (ctx[k] for k in ("r1cs", "pubs", "comp",
+                                                   "z_mont"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pk.npz")
+        ctx["pk"].save(path)
+        pk = ProvingKey.load(path, device=dev)
+    assert pk.query_scalars is None
+    pp = pss(l)
+    ni = r1cs.num_instance
+    log(f"mpc path: m={pk.domain_size} l={pp.l} n={pp.n} t={pp.t}")
+
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    split, pack = {}, {}
+    t0 = time.perf_counter()
+    crs = pack_proving_key(pk, pp, timings=pack)
+    split["pack"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    qap_shares = comp.qap(z_mont).pss(pp)
+    a_sh = pack_from_witness(pp, z_mont[1:])
+    ax_sh = pack_from_witness(pp, z_mont[ni:])
+    sync(dev)
+    split["qap_pss"] = (time.perf_counter() - t0) * 1e3
+    data = [(crs[i], qap_shares[i], a_sh[i], ax_sh[i]) for i in range(pp.n)]
+
+    def round_(**kw):
+        king = {}
+
+        async def party(net, d):
+            return await distributed_prove_party(
+                pp, *d, net, timings=king if net.is_king else None, **kw
+            )
+
+        t0 = time.perf_counter()
+        res = simulate_network_round(pp.n, party, data)
+        sync(dev)
+        king["round"] = (time.perf_counter() - t0) * 1e3
+        return res, king
+
+    res, king = round_()
+    split.update(h=king["h"], ab=king["ab"], c=king["c"],
+                 round=king["round"])
+    t0 = time.perf_counter()
+    proof = reassemble_proof(res[0], pk)
+    split["reassemble"] = (time.perf_counter() - t0) * 1e3
+    launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    if not verify(pk.vk, proof, pubs):
+        raise AssertionError("MPC proof at r = s = 0 does not verify")
+    if proof_bytes(proof) != proof_bytes(ctx["proof"]):
+        raise AssertionError("MPC proof differs from prove_single's")
+    if dev.type == "cuda":
+        for k in ("limb_add_g1", "limb_add_g2", "limb_double_g1",
+                  "limb_double_g2", "limb_horner_g1", "limb_horner_g2"):
+            if launches[k] == 0:
+                raise AssertionError(f"the MPC path never launched {k}")
+    log("mpc path pack ms per query: " + json.dumps(pack))
+    log("mpc path phases ms: " + json.dumps(split))
+    log(f"mpc path launches per proof (pack + round): {json.dumps(launches)}")
+    log(f"mpc path peak device memory (pack + round): {peak} bytes")
+    log(f"mpc path: proof verifies and equals prove_single's "
+        f"({len(proof_bytes(proof))} bytes)")
+
+    rng = np.random.default_rng(2025)
+    r = int.from_bytes(rng.bytes(40), "little") % R
+    s = int.from_bytes(rng.bytes(40), "little") % R
+    res, king = round_(pub=public_prove_consts(pk), r=r, s=s)
+    zk = reassemble_proof(res[0], pk)
+    if not verify(pk.vk, zk, pubs):
+        raise AssertionError("MPC proof at r, s != 0 does not verify")
+    if proof_bytes(zk) == proof_bytes(proof):
+        raise AssertionError("r, s != 0 gave the r = s = 0 proof")
+    log(f"mpc path r, s != 0: verifies, round {king['round']:.1f} ms")
+
+    # where the time goes, from a warm pack and a third r = s = 0 round
+    # with the device drained around each probed call (so these totals
+    # run a little slower than the unprobed ones above)
+    from distributed_groth16_tpu_torch.ops import limb_kernels
+    from distributed_groth16_tpu_torch.parallel import dfft, dmsm
+    from distributed_groth16_tpu_torch.parallel.pss import (
+        PackedSharingParams,
+    )
+
+    with probes(dev, {"ladder_apply": (limb_kernels, "ladder_apply")}) as t:
+        t0 = time.perf_counter()
+        pack_proving_key(pk, pp)
+        sync(dev)
+        t["pack"] = (time.perf_counter() - t0) * 1e3
+    log("mpc path warm pack, ms in ladder_apply: " + json.dumps(t))
+    P = PackedSharingParams
+    with probes(dev, {
+        "local_fft": (dfft, "_fft1_local"),
+        "king_fft": (dfft, "_fft2_king"),
+        "pss_unpack": (P, "unpack"),
+        "pss_pack": (P, "pack_from_public"),
+        "local_msm": (dmsm, "msm"),
+        "king_unpackexp": (P, "unpackexp"),
+    }) as t:
+        res, king = round_()
+        t["round"] = king["round"]
+    if proof_bytes(reassemble_proof(res[0], pk)) != proof_bytes(proof):
+        raise AssertionError("probed MPC round gave another proof")
+    log("mpc path round, ms by work: " + json.dumps(t))
     return launches
 
 
@@ -362,28 +585,35 @@ def main() -> int:
         _cuda.library(k.source)
 
     rng = np.random.default_rng(42)
-    entries = phase_kernels(dev, bound, rng)
-    launches = phase_main_path(dev)
+    circuit = sha256_abc()
+    ladder = ladder_shapes(circuit[0], 1 << 15)
+    entries = phase_kernels(dev, bound, rng, ladder)
+    launches, ctx = phase_main_path(dev, circuit)
     phase_byte_identity(dev)
+    launches_mpc = phase_mpc(dev, ctx)
 
-    # kernel 2's device function runs inside Horner (kernel 3); as a launch
-    # of its own it serves only the MPC path, so the main path
-    # launches it no time: it is held and timed above, and listed apart
-    on_path, off_path = [], []
+    # every kernel launches on at least one path: kernel 2 (double) only on
+    # the MPC path's ladder, kernel 4 (ntt_small) only on the main path.
+    # Every row's own numbers are at the main path's shape (as in slice 1);
+    # kernels 1 and 2 carry theirs at ladder_apply's widest shape in
+    # at_ladder
+    rows = []
     for key, e in entries.items():
+        err = max(e["max_abs_err"], e.get("ladder", e)["max_abs_err"])
         row = dict(
             name=key, route="cuda", source=e["source"],
             replaces=REPLACES[e["kind"]], shape=e["shape"],
-            launches=launches[key], max_abs_err=e["max_abs_err"],
-            match=e["max_abs_err"] == 0, ms=e["ms"], kernel_ms=e["ms"],
+            launches=launches[key], launches_mpc=launches_mpc[key],
+            max_abs_err=err, match=err == 0, ms=e["ms"], kernel_ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=None,
         )
-        (off_path if e["kind"] == "double" else on_path).append(row)
-    for row in on_path:
-        if row["launches"] == 0:
-            raise AssertionError(f"main path never launched {row['name']}")
-    print(json.dumps({"kernels": on_path, "off_path_kernels": off_path}))
+        if "ladder" in e:
+            row["at_ladder"] = e["ladder"]
+        if row["launches"] + row["launches_mpc"] == 0:
+            raise AssertionError(f"no path launched {key}")
+        rows.append(row)
+    print(json.dumps({"kernels": rows}))
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

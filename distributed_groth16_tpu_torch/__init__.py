@@ -4,11 +4,15 @@ distributed_groth16_tpu, for one NVIDIA Hopper card (H100).
 The JAX package beside it stays the reference; this package mirrors its
 layout and names so each module has an obvious counterpart:
 
-    ops/       field, curve and limb-major arithmetic, NTT, MSM; the four
-               hand-written CUDA kernels (csrc/) and their builder
-               (ops/_cuda.py)
-    models/    groth16 setup / prove_single / verify
+    ops/       field, curve and limb-major arithmetic, NTT, MSM, the
+               fixed-scalar ladder; the four hand-written CUDA kernels
+               (csrc/) and the module that compiles them (ops/_cuda.py)
+    parallel/  the n-party star (in-process LocalSimNet), packed secret
+               sharing, d_fft and d_msm
+    models/    groth16 setup / prove_single / CRS packing and the MPC
+               prover (distributed_prove_party) / verify
     frontend/  R1CS builder and the SHA-256 circuit
+    utils/     the transport's NetConfig
 
 Rules the port keeps:
 

@@ -1,7 +1,14 @@
-"""Single-node Groth16: setup, QAP, prove_single, verify."""
+"""Groth16: setup, QAP, single-node and MPC prove, verify."""
 
 from .keys import Proof, ProvingKey, VerifyingKey  # noqa: F401
-from .prove import prove_single  # noqa: F401
-from .qap import QAP, CompiledR1CS  # noqa: F401
+from .prove import (  # noqa: F401
+    distributed_prove_party,
+    pack_from_witness,
+    prove_single,
+    public_prove_consts,
+    reassemble_proof,
+)
+from .proving_key import PackedProvingKeyShare, pack_proving_key  # noqa: F401
+from .qap import QAP, CompiledR1CS, PackedQAPShare  # noqa: F401
 from .setup import setup  # noqa: F401
 from .verify import verify  # noqa: F401

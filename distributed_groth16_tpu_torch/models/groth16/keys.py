@@ -49,8 +49,9 @@ class ProvingKey:
     domain_size: int
     num_instance: int
     # The JAX package keeps the setup's query discrete logs here for its
-    # packed (MPC) proving-key route; the port has no such route yet, so
-    # this stays None (and is never saved: the values are trapdoors).
+    # scalar route of pack_proving_key; the port has no such route yet, so
+    # this stays None and the key packs in the exponent. Never saved: the
+    # values are trapdoors (anyone holding them can forge proofs).
     query_scalars: object | None = None
 
     @property
@@ -60,6 +61,13 @@ class ProvingKey:
     @property
     def device(self) -> torch.device:
         return self.a_query.device
+
+    def strip(self) -> "ProvingKey":
+        """Destroy the trapdoor-derived query_scalars. After this the key
+        packs via the in-exponent point route, like a loaded external CRS.
+        Returns self for chaining."""
+        self.query_scalars = None
+        return self
 
     def to(self, device) -> "ProvingKey":
         """A copy of this key with every query array on `device`."""

@@ -8,7 +8,8 @@ a[nc..nc+ni] = z[..ni], and c = a * b. The sparse matvec is one batched
 Montgomery multiply over the nnz entries, an inclusive prefix sum under
 field addition (Hillis-Steele, log2(nnz) batched adds) and a per-row
 boundary difference — the same canonical values as the JAX package's
-associative scan. (QAP.pss, the packed-sharing split, is not ported yet.)
+associative scan. `QAP.pss` splits the vectors into per-party packed
+shares in the d_fft layout (qap.rs:143-187).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import torch
 from ...frontend.r1cs import R1CS
 from ...ops.field import fr, resolve_device
 from ...ops.ntt import Domain, domain
+from ...parallel.packing import pack_strided
+from ...parallel.pss import PackedSharingParams
 
 
 def _next_pow2(x: int) -> int:
@@ -93,6 +96,33 @@ class QAP:
     a: torch.Tensor  # (m, 16)
     b: torch.Tensor  # (m, 16)
     c: torch.Tensor  # (m, 16)
+    domain: Domain
+
+    def pss(self, pp: PackedSharingParams) -> list["PackedQAPShare"]:
+        """Per-party packed shares in the bitrev+strided d_fft layout
+        (qap.rs:143-187)."""
+        sa = pack_strided(pp, self.a)
+        sb = pack_strided(pp, self.b)
+        sc = pack_strided(pp, self.c)
+        return [
+            PackedQAPShare(
+                num_inputs=self.num_inputs,
+                num_constraints=self.num_constraints,
+                a=sa[i], b=sb[i], c=sc[i], domain=self.domain,
+            )
+            for i in range(pp.n)
+        ]
+
+
+@dataclass
+class PackedQAPShare:
+    """One party's packed shares of the QAP vectors."""
+
+    num_inputs: int
+    num_constraints: int
+    a: torch.Tensor  # (m/l, 16)
+    b: torch.Tensor
+    c: torch.Tensor
     domain: Domain
 
 

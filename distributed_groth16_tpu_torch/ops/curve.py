@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from .constants import G1_B, G2_B, N_LIMBS
+from .constants import G1_B, G2_B, N_LIMBS, R, to_limbs
 from .field import fq, fq2
 
 
@@ -26,6 +26,7 @@ class CurvePoints:
 
     def __init__(self, field, b, elem_shape, glv=None):
         self.F = field
+        self.r = R  # order of the scalar group (BN254 Fr)
         self.elem_shape = elem_shape
         self.coord_axes = len(elem_shape)
         p = field.p if hasattr(field, "p") else field.fq.p
@@ -33,7 +34,10 @@ class CurvePoints:
         b3 = tuple(3 * c % p for c in b) if isinstance(b, tuple) else 3 * b % p
         base = field.fq if self.coord_axes == 2 else field
         self._b3_np = base.encode_np([b3])[0]  # 3b, Montgomery
+        # GLV endomorphism parameters (ops/glv.py), or None (G2): fixed-
+        # scalar ladders then run full-width double-and-add
         self.glv = glv
+        self._beta_np = field.encode_np([glv.beta])[0] if glv else None
 
     # -- construction / conversion -------------------------------------------
 
@@ -154,6 +158,13 @@ class CurvePoints:
         X, Y, Z = self._coords(p)
         return self._pack(X, self.F.neg(Y), Z)
 
+    def endo(self, p):
+        """The GLV endomorphism phi(X:Y:Z) = (beta*X : Y : Z) with
+        phi(P) = lambda*P (ops/glv.py). Only for curves with `glv` set."""
+        X, Y, Z = self._coords(p)
+        beta = torch.as_tensor(self._beta_np, device=p.device)
+        return self._pack(self.F.mul(X, beta), Y, Z)
+
     def select(self, cond, p, q):
         """where(cond, p, q) with cond of batch shape."""
         c = cond
@@ -175,6 +186,20 @@ class CurvePoints:
             acc = self.select(bits[..., i] == 1, self.add(acc, base), acc)
             base = self.double(base)
         return acc
+
+    def sum(self, pts, axis=0):
+        """Tree-reduce point sum along a batch axis (log n add rounds)."""
+        ax = axis % (pts.ndim - 1 - self.coord_axes)
+        pts = torch.movedim(pts, ax, 0)
+        n = pts.shape[0]
+        while n > 1:
+            half = n // 2
+            s = self.add(pts[:half], pts[half : 2 * half])
+            if n % 2:
+                s = torch.cat([s, pts[2 * half :][:1]], dim=0)
+            pts = s
+            n = pts.shape[0]
+        return pts[0]
 
     def sum_sequential(self, pts, axis=0):
         """Point sum along an axis, one add at a time."""
@@ -215,6 +240,37 @@ def g1() -> CurvePoints:
 @functools.cache
 def g2() -> CurvePoints:
     return CurvePoints(fq2(), G2_B, (2, N_LIMBS))
+
+
+def fixed_scalar_ladder_tensors(curve: CurvePoints, scalars):
+    """Ladder tensors for a flat list of FIXED Fr scalars: (bits, signs,
+    nbits), host (CPU) tensors.
+
+    The shared precomputation of the fixed-scalar point transforms
+    (parallel/pss.py dense matrices). Under GLV (curve.glv set) each
+    scalar splits into two signed ~129-bit halves applied to {P, phi(P)}:
+    bits (2, S, nbits) int32, signs (2, S) bool, part 0 = k1 on P, part
+    1 = k2 on phi(P). Without GLV: bits (1, S, nbits=256), signs None.
+    Scalars are reduced mod curve.r (not through encode_scalars_std).
+    """
+
+    def raw_limbs(vals):
+        return torch.as_tensor(
+            np.array([to_limbs(v) for v in vals], dtype=np.int32)
+        )
+
+    s = [v % curve.r for v in scalars]
+    n = len(s)
+    if curve.glv is not None:
+        nbits = curve.glv.max_bits
+        halves = [curve.glv.decompose(v) for v in s]
+        flat = [abs(h[p]) for p in (0, 1) for h in halves]
+        sgn = [h[p] < 0 for p in (0, 1) for h in halves]
+        bits = scalar_bits(raw_limbs(flat), nbits).reshape(2, n, nbits)
+        signs = torch.as_tensor(np.array(sgn, dtype=bool).reshape(2, n))
+        return bits, signs, nbits
+    bits = scalar_bits(raw_limbs(s), 256).reshape(1, n, 256)
+    return bits, None, 256
 
 
 def scalar_bits(scalars, nbits: int = 256) -> torch.Tensor:

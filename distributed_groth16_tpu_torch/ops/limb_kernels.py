@@ -536,3 +536,50 @@ def msm_tree(points_rm, scalars_std, c: int | None = None,
     s_all = torch.cat(sums, dim=1)  # (RR, W_all)
     out = g.horner(s_all, c)  # (RR, 1)
     return g.to_rowmajor(out)[0]
+
+
+# ---------------------------------------------------------------------------
+# Fixed-scalar ladder application: out[..., o] = sum_k M[o][k] * pts[..., k]
+# (the in-the-exponent PSS pack/unpack maps, parallel/pss.py): a batched
+# add/double/select sweep on limb-major tensors, so every add is a kernel-1
+# launch and every doubling a kernel-2 launch on a CUDA tensor.
+# ---------------------------------------------------------------------------
+
+
+def ladder_apply(g: LimbGroup, pts_lm, bits, signs, nbits: int):
+    """pts_lm: (ROWS, B, K) limb-major bases (already GLV-expanded when the
+    caller uses the endomorphism); bits: (o, K, nbits) 0/1; signs: (o, K)
+    bool or None, on pts_lm's device. Returns (ROWS, B, o) limb-major
+    points.
+
+    Per ladder step: one add at (ROWS, B*o*K) columns and one doubling at
+    (ROWS, B*K). Without signs the addend (ROWS, B, 1, K) is broadcast to
+    the accumulator's shape, which the add wrapper copies once per step."""
+    RR = g.ROWS
+    B, K = pts_lm.shape[1], pts_lm.shape[2]
+    o = bits.shape[0]
+    inf = torch.as_tensor(g.inf_col, device=pts_lm.device).reshape(
+        RR, 1, 1, 1
+    )
+    acc = inf.expand(RR, B, o, K)
+    base = pts_lm
+    for i in range(nbits):
+        bit = bits[..., i]  # (o, K)
+        addend = base[:, :, None, :]  # (ROWS, B, 1, K)
+        if signs is not None:
+            # (o, K) broadcasts against (ROWS, B, 1, K) -> (ROWS, B, o, K)
+            addend = torch.where(signs, g.neg(addend), addend)
+        cand = g.add(acc, addend)
+        acc = torch.where(bit == 1, cand, acc)
+        base = g.double(base)
+    # pairwise tree-sum over the K axis (padded with infinity if odd)
+    k = K
+    x = acc
+    while k > 1:
+        if k % 2:
+            x = torch.cat([x, inf.expand(RR, B, o, 1)], dim=-1)
+            k += 1
+        pair = x.reshape(RR, B, o, k // 2, 2)
+        x = g.add(pair[..., 0], pair[..., 1])
+        k //= 2
+    return x[..., 0]  # (ROWS, B, o)

@@ -96,16 +96,20 @@ class Domain:
             lambda: _powers_device(base, self.size, device),
         )
 
+    def _live_wpows(self, device):
+        """(n, 16) powers w^0..w^{n-1} of the domain's root on `device`
+        (the d_fft twiddle table)."""
+        return self._table(
+            "wpows", device,
+            lambda: _powers_device(self.group_gen, self.size, device),
+        )
+
     def _core(self, x, inverse: bool):
         dev = x.device
         perm = self._table(
             "perm", dev, lambda: torch.as_tensor(self._perm, device=dev)
         )
-        wpows = self._table(
-            "wpows", dev,
-            lambda: _powers_device(self.group_gen, self.size, dev),
-        )
-        return _ntt_core(x, perm, wpows, self.logn, inverse)
+        return _ntt_core(x, perm, self._live_wpows(dev), self.logn, inverse)
 
     def fft(self, coeffs):
         """Evaluate: (..., k<=n, 16) coeffs -> (..., n, 16) evals."""
