@@ -10,12 +10,15 @@ result line):
   2. build: nvcc compiles the kernels of distributed_groth16_tpu_torch/
      csrc/ for sm_90a (one process per source, in parallel);
   3. kernels: each hand-written kernel against its plain PyTorch version
-     on the card, at the shapes the main path gives it, compared limb for
-     limb (tolerance zero: these are integers), and timed;
+     on the card, at the shapes the main path gives it (and Horner also at
+     W = 2 and W = 64 window sums, c = 4), compared limb for limb
+     (tolerance zero: these are integers), and timed; Horner's chain bound
+     from the measured latency of one Montgomery product;
   4. main path: the SHA-256 single-block circuit (m = 2^15) through
      setup -> CompiledR1CS -> prove_single (cold, warm, and r, s != 0) ->
      verify, with the kernels' launch counters zeroed just before and read
-     just after;
+     just after; then one more warm proof with CUDA events around every
+     kernel launch, for each kernel's device time per proof;
   5. byte identity: at m = 2^11 the card's proof equals the CPU's (plain
      versions) for the same key and witness;
   6. MPC path: phase 4's key saved and loaded as the proof service loads
@@ -27,14 +30,16 @@ result line):
      r, s != 0 that must verify. Counters zeroed before, read after.
 
 Output: phase lines, then a {"kernels": [...]} line (launches on the main
-path and, as launches_mpc, on the MPC path), the nvidia-smi
-name/power-limit line, and last {"ok": true, "device": {...}}.
+path and, as launches_mpc, on the MPC path; ms_per_proof, the summed
+device time in one warm proof; ptxas' registers and spills), the
+nvidia-smi name/power-limit line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -113,6 +118,77 @@ def compare(name, kern, plain) -> int:
     if err:
         raise AssertionError(f"{name}: kernel differs from plain, {err}")
     return err
+
+
+# mangled-name fragment of each kernel row's function in ptxas -v output
+PTXAS_NAMES = {
+    f"limb_{op}_g{deg}": f"{op}_kernelILi8ELi{deg}E"
+    for op in ("add", "double", "horner") for deg in (1, 2)
+}
+PTXAS_NAMES["ntt_small"] = "ntt_small_kernel"
+
+
+def ptxas_table(log: str) -> dict:
+    """ptxas -v output -> {mangled function: {registers, stack_frame,
+    spill_stores, spill_loads}}."""
+    table, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
+                      line)
+        if m:
+            cur = table.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack_frame=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return table
+
+
+def warps_per_sm(registers: int, threads: int = 128) -> int:
+    """Resident warps per SM that the register file allows for blocks of
+    `threads` (registers are granted per warp in units of 256; at most 64
+    warps and 32 blocks per SM on compute capability 9.0)."""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps = threads // 32
+    blocks = min(32, 65536 // (per_warp * warps))
+    return min(64, blocks * warps)
+
+
+def product_latency_us(dev, g, rng) -> float:
+    """Latency of one inlined Montgomery product on the card, as a lane of
+    Horner's warp sees it: each lane of one warp squares its own element
+    in a dependent chain (dg16_mont_chain), 2n minus n products, so the
+    launch cancels."""
+    import numpy as np
+    import torch
+
+    from distributed_groth16_tpu_torch.ops import _cuda
+    from distributed_groth16_tpu_torch.ops.constants import Q
+
+    lib = _cuda.library("limb_group")
+    vals = [int.from_bytes(rng.bytes(40), "little") % (2 * Q)
+            for _ in range(32)]
+    words = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals),
+                          dtype="<i4")
+    x = torch.tensor(words.copy(), dtype=torch.int32, device=dev)
+
+    def chain(n):
+        def go():
+            rc = lib.dg16_mont_chain(8, x.data_ptr(), n,
+                                     g.kernel_consts.ctypes.data,
+                                     _cuda.stream_ptr(x))
+            if rc:
+                raise RuntimeError(f"dg16_mont_chain: CUDA error {rc}")
+        return cuda_ms(go, 3)
+
+    n = 20000
+    return (chain(2 * n) - chain(n)) * 1e3 / n
 
 
 def random_fr_limbs(rng, shape, bound: int):
@@ -231,19 +307,46 @@ def phase_kernels(dev, bound, rng, ladder, n=32 * 16384,
             entries["limb_add_g2"]["ladder"]["broadcast_copy_ms"] = cuda_ms(
                 lambda: addend.expand(RR, B, o, K).reshape(RR, -1), 5
             )
+        # Horner: the main path's W = 32, c = 8, then the two ends of what
+        # the kernel stages (c = 4: W = 2, and W = 64 as msm_tree takes for
+        # n < 4096) on window sums with infinity, equal columns, and a last
+        # add that meets P + P (S_0 = 2^c S_1)
+        hs = {(32, 8): red[:, :32].contiguous()}
+        s2 = red[:, 5000:5002].clone()
+        col = s2[:, 1:2]
+        for _ in range(4):
+            col = g.plain_double(col)
+        s2[:, 0:1] = col
+        hs[(2, 4)] = s2
+        s64 = red[:, 1000:1064].clone()  # 1024.. are infinity + Q
+        s64[:, 63] = torch.as_tensor(g.inf_col[:, 0], device=dev)
+        s64[:, 7] = s64[:, 8]
+        hs[(64, 4)] = s64
+        cases = []
+        for (W, c), s in hs.items():
+            err = compare(f"horner_{gname} W={W} c={c}", g.horner(s, c),
+                          g.plain_horner(s, c))
+            cases.append(dict(W=W, c=c, ms=cuda_ms(lambda: g.horner(s, c), 3),
+                              max_abs_err=err))
         W, c = 32, 8
-        s = red[:, :W].contiguous()
-        err = compare(f"horner_{gname}", g.horner(s, c), g.plain_horner(s, c))
-        k_ms = cuda_ms(lambda: g.horner(s, c), 3)
+        s = hs[(W, c)]
         p_ms = cuda_ms(lambda: g.plain_horner(s, c), 1)
         muls = (W - 1) * (c * FQ_MULS["double"] + FQ_MULS["add"]) * f
         b_ms, b_by = bound(RR * (W + 1) * 4, muls)
+        # the warp-spread chain is 3 dependent products per doubling and
+        # per add, each Fq2 product's Fp products side by side
+        depth = (W - 1) * (3 * c + 3)
         entries[f"limb_horner_{gname}"] = dict(
-            shape=[RR, W], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-            bound_by=b_by, max_abs_err=err, kind="horner",
-            source=SOURCES["limb_group"],
+            shape=[RR, W], ms=cases[0]["ms"], plain_ms=p_ms, bound_ms=b_ms,
+            bound_by=b_by, max_abs_err=0, kind="horner", cases=cases,
+            chain_depth=depth, source=SOURCES["limb_group"],
         )
         log(f"phase kernels {gname}: ok")
+    lat = product_latency_us(dev, lg1(), rng)
+    for gname in ("g1", "g2"):
+        e = entries[f"limb_horner_{gname}"]
+        e["product_latency_us"] = lat
+        e["chain_bound_ms"] = e["chain_depth"] * lat * 1e-3
 
     ntt_runs = []
     for S, L in ntt:
@@ -313,6 +416,103 @@ def probes(dev, targets: dict):
             setattr(owner, name, fn)
 
 
+def kernel_row(kname: str):
+    """The kernels-line row of a demangled device function name, or None."""
+    k = kname.replace(" ", "")
+    for op in ("add", "double", "horner"):
+        for deg in (1, 2):
+            if f"dg16::{op}_kernel<8,{deg}>" in k:
+                return f"limb_{op}_g{deg}"
+    return "ntt_small" if "dg16::ntt_small_kernel" in k else None
+
+
+def width_bucket(columns: int) -> str:
+    return (">=65536" if columns >= 65536
+            else "4096-65535" if columns >= 4096 else "<4096")
+
+
+@contextmanager
+def kernel_trace():
+    """torch.profiler (CUPTI) over the block. Yields a dict that is filled
+    on exit with each kernel's summed device time (per_kernel, ms), kernel
+    1's split by launch width (add_by_columns: {row: {columns: [launches,
+    ms]}}), and busy_ms, the union of every device activity's interval;
+    per_kernel stays empty if the profiler recorded no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_groth16_tpu_torch.ops import _cuda
+
+    names = {id(k): name for name, k in _cuda.KERNELS.items()}
+    order = []  # (row, columns) of each launch, in launch order
+    call = _cuda.Kernel.__call__
+
+    def recorded(self, *args):
+        call(self, *args)
+        name = names[id(self)]
+        order.append((name, args[9] if name.startswith("limb_add") else None))
+
+    res = {"per_kernel": {}, "add_by_columns": {}, "busy_ms": None}
+    _cuda.Kernel.__call__ = recorded
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            yield res
+    finally:
+        _cuda.Kernel.__call__ = call
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, kernel_row(e.name))
+        for e in prof.events() if e.device_type == DeviceType.CUDA
+    )
+    busy, end = 0.0, None
+    for a, b, _ in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    res["busy_ms"] = busy * 1e-3
+    ours = [(row, (b - a) * 1e-3) for a, b, row in spans if row]
+    for row, ms in ours:
+        res["per_kernel"][row] = res["per_kernel"].get(row, 0.0) + ms
+    if [r for r, _ in ours] == [r for r, _ in order]:
+        for (row, ms), (_, width) in zip(ours, order):
+            if width is not None:
+                cell = res["add_by_columns"].setdefault(row, {}).setdefault(
+                    width_bucket(width), [0, 0.0])
+                cell[0] += 1
+                cell[1] += ms
+
+
+@contextmanager
+def kernel_events():
+    """While active, every kernel launch through _cuda.Kernel is bracketed
+    by two CUDA events on the current stream; yields {kernel name: [(start,
+    stop), ...]}. Read them after a synchronize."""
+    from distributed_groth16_tpu_torch.ops import _cuda
+
+    marks = {}
+    names = {id(k): name for name, k in _cuda.KERNELS.items()}
+    call = _cuda.Kernel.__call__
+
+    def timed(self, *args):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call(self, *args)
+        stop.record()
+        marks.setdefault(names[id(self)], []).append((start, stop))
+
+    _cuda.Kernel.__call__ = timed
+    try:
+        yield marks
+    finally:
+        _cuda.Kernel.__call__ = call
+
+
 def sha256_abc():
     from distributed_groth16_tpu_torch.frontend.sha256 import sha256_circuit
 
@@ -368,6 +568,34 @@ def phase_main_path(dev, circuit, log_m=15):
     sync(dev)
     launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    # each kernel's device time in one more warm proof, from the profiler's
+    # kernel records (else CUDA events around each launch, which also count
+    # the host's launch latency whenever the card is idle); the launch
+    # counts above are already read
+    per_proof_ms = {k: 0.0 for k in _cuda.KERNELS}
+    if dev.type == "cuda":
+        with kernel_trace() as tr:
+            t0 = time.perf_counter()
+            proof3 = prove_single(pk, comp, z_mont)
+            sync(dev)
+            t_probed = (time.perf_counter() - t0) * 1e3
+        method = "torch.profiler"
+        if not tr["per_kernel"]:
+            method = "cuda events"
+            with kernel_events() as marks:
+                proof3 = prove_single(pk, comp, z_mont)
+                sync(dev)
+            for k, evs in marks.items():
+                tr["per_kernel"][k] = sum(a.elapsed_time(b) for a, b in evs)
+        per_proof_ms.update(tr["per_kernel"])
+        if proof3 != proof1:
+            raise AssertionError("probed warm proof differs")
+        log("main path kernel device ms per warm proof: " + json.dumps(dict(
+            method=method, per_kernel=per_proof_ms,
+            total=sum(per_proof_ms.values()),
+            add_by_columns=tr["add_by_columns"],
+            device_busy_ms=tr["busy_ms"], probed_proof_wall=t_probed,
+        )))
     if proof0 != proof1:
         raise AssertionError("cold and warm proofs differ")
     if not verify(pk.vk, proof1, pubs):
@@ -386,8 +614,9 @@ def phase_main_path(dev, circuit, log_m=15):
     log(f"main path launches (setup + 3 proofs): {json.dumps(launches)}")
     log(f"main path peak device memory: {peak} bytes")
     log("main path: both proofs verify")
-    return launches, dict(r1cs=r1cs, pubs=pubs, pk=pk, comp=comp,
-                          z_mont=z_mont, proof=proof1)
+    return launches, per_proof_ms, dict(r1cs=r1cs, pubs=pubs, pk=pk,
+                                        comp=comp, z_mont=z_mont,
+                                        proof=proof1)
 
 
 def phase_mpc(dev, ctx, l=2):
@@ -577,10 +806,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.build()
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    for src, text in _cuda.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+    ptxas = {}
+    for text in _cuda.build_log.values():
+        ptxas.update(ptxas_table(text))
+    for fn, info in sorted(ptxas.items()):
+        log(f"  ptxas {fn}: {json.dumps(info)}")
     for k in _cuda.KERNELS.values():
         _cuda.library(k.source)
 
@@ -588,7 +818,7 @@ def main() -> int:
     circuit = sha256_abc()
     ladder = ladder_shapes(circuit[0], 1 << 15)
     entries = phase_kernels(dev, bound, rng, ladder)
-    launches, ctx = phase_main_path(dev, circuit)
+    launches, per_proof_ms, ctx = phase_main_path(dev, circuit)
     phase_byte_identity(dev)
     launches_mpc = phase_mpc(dev, ctx)
 
@@ -607,9 +837,21 @@ def main() -> int:
             max_abs_err=err, match=err == 0, ms=e["ms"], kernel_ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=None,
+            ms_per_proof=per_proof_ms[key],
         )
+        for extra in ("cases", "chain_depth", "product_latency_us",
+                      "chain_bound_ms"):
+            if extra in e:
+                row[extra] = e[extra]
         if "ladder" in e:
             row["at_ladder"] = e["ladder"]
+        info = [v for f, v in ptxas.items() if PTXAS_NAMES[key] in f]
+        if info:  # empty when the libraries were built by an earlier run
+            row["ptxas"] = dict(info[0])
+            if "registers" in info[0] and key.startswith(("limb_add",
+                                                          "limb_double")):
+                row["ptxas"]["warps_per_sm"] = warps_per_sm(
+                    info[0]["registers"])
         if row["launches"] + row["launches_mpc"] == 0:
             raise AssertionError(f"no path launched {key}")
         rows.append(row)

@@ -9,32 +9,56 @@
 // and 9), so results equal the plain PyTorch versions limb for limb.
 //
 // Layout: a batch is int32[ROWS, n] of 16-bit limbs, ROWS = 3 * CR with
-// CR = 16 (G1) or 32 (G2); rows X, Y, Z, each CR rows. One thread owns one
-// point column: neighbouring threads read neighbouring addresses in every
-// limb row, so each row load and store is coalesced. Inputs may be strided
-// views (row stride, column stride), the ragged last block is masked,
-// nothing is padded.
+// CR = 16 (G1) or 32 (G2); rows X, Y, Z, each CR rows.
 //
-// What bounds them on the card: integer multiply-adds. A G1 add is 14
-// Montgomery products (264 32-bit multiply-adds each) against 288 bytes
-// moved per point, far above the H100's ops:byte balance, and G2 triples
-// the products. The design keeps every intermediate in registers (no
-// shared memory, no atomics); mont_mul is out of line (field.cuh), which
-// keeps each kernel small enough to compile and, per ptxas -v, within
-// 255 registers with at most a few bytes of spill.
+// Kernels 1 and 2: one thread owns one point column; neighbouring threads
+// read neighbouring addresses in every limb row, so each row load and
+// store is coalesced. Inputs may be strided views (row stride, column
+// stride), the ragged last block is masked, nothing is padded. What bounds
+// them: integer multiply-adds (a G1 add is 14 Montgomery products against
+// 288 bytes moved per point; G2 triples the products), so every value
+// stays in registers. Both groups call one out-of-line product: inlined,
+// the 14 or 42 product sites outgrow the instruction cache and run slower
+// (tools/tune_kernels.py). One block of 128 threads per SM is all the
+// launch bounds ask: G1 then takes 118 registers, G2 235, with no spill;
+// forcing more blocks spills and runs slower.
 //
-// Horner (kernel 3) is a W-1 step dependency chain on a single point: one
-// thread walks it and reads window column w directly (the TPU broadcast the
-// point to 128 lanes and extracted the column by a masked lane reduce).
-// It is latency-bound by construction and runs once per MSM.
+// Kernel 3 (Horner) is a W-1 step dependency chain on a single point:
+// latency, not throughput, bounds it. One warp owns the point. The W
+// window sums are staged in shared memory once; each doubling and each add
+// runs as the warp-spread steps of group.cuh, the independent products of
+// a step on different lanes (4 | 1 | 4 per doubling, 6 | 2 | 6 per add;
+// G2 puts each Fq2 product's three Fp products on lanes of their own), so
+// the chain is 3 product latencies per group operation instead of 9 / 14.
 #include "group.cuh"
 
 namespace dg16 {
 
 constexpr int kThreads = 128;
+constexpr int kHornerMaxW = 64;  // window columns staged (c = 4: W = 64)
+
+// Kernel 1 per group: blocks of kThreads per SM that ptxas must fit (so at
+// most 65536 / (kThreads * MINB) registers a thread), and whether the
+// products are inlined. tools/tune_kernels.py builds other values with -D.
+#ifndef DG16_ADD_MINB_G1
+#define DG16_ADD_MINB_G1 1
+#endif
+#ifndef DG16_ADD_MINB_G2
+#define DG16_ADD_MINB_G2 1
+#endif
+#ifndef DG16_ADD_INL_G1
+#define DG16_ADD_INL_G1 0
+#endif
+#ifndef DG16_ADD_INL_G2
+#define DG16_ADD_INL_G2 0
+#endif
+template <int DEG>
+constexpr int kAddMinBlocks = DEG == 1 ? DG16_ADD_MINB_G1 : DG16_ADD_MINB_G2;
+template <int DEG>
+constexpr bool kAddInline = DEG == 1 ? DG16_ADD_INL_G1 : DG16_ADD_INL_G2;
 
 template <int NW, int DEG>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kAddMinBlocks<DEG>)
     add_kernel(const int32_t* p, long long p_rs, long long p_cs,
                const int32_t* q, long long q_rs, long long q_cs, int32_t* out,
                long long n, const GroupConsts<NW, DEG> g) {
@@ -43,7 +67,7 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t P[3 * NW * DEG], Q[3 * NW * DEG];
   load_point<NW, DEG>(P, p, p_rs, j * p_cs);
   load_point<NW, DEG>(Q, q, q_rs, j * q_cs);
-  pt_add<NW, DEG>(P, P, Q, g);
+  pt_add<NW, DEG, kAddInline<DEG>>(P, P, Q, g);
   store_point<NW, DEG>(out, n, j, P);
 }
 
@@ -55,23 +79,59 @@ __global__ void __launch_bounds__(kThreads)
   if (j >= n) return;
   uint32_t P[3 * NW * DEG];
   load_point<NW, DEG>(P, p, p_rs, j * p_cs);
-  pt_double<NW, DEG>(P, P, g);
+  pt_double<NW, DEG, false>(P, P, g);
   store_point<NW, DEG>(out, n, j, P);
 }
 
-// acc = sum_w 2^(c*w) * S_w over the W columns of s (LSB window first).
+// acc = sum_w 2^(c*w) * S_w over the W columns of s (LSB window first),
+// s int32[ROWS, W] contiguous, 2 <= W <= kHornerMaxW. One block, one warp.
 template <int NW, int DEG>
-__global__ void horner_kernel(const int32_t* s, long long W, int c,
-                              int32_t* out, const GroupConsts<NW, DEG> g) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  uint32_t acc[3 * NW * DEG], col[3 * NW * DEG];
-  load_point<NW, DEG>(acc, s, W, W - 1);
-  for (long long w = W - 2; w >= 0; --w) {
-    for (int k = 0; k < c; ++k) pt_double<NW, DEG>(acc, acc, g);
-    load_point<NW, DEG>(col, s, W, w);
-    pt_add<NW, DEG>(acc, acc, col, g);
+__global__ void __launch_bounds__(32)
+    horner_kernel(const int32_t* s, int W, int c, int32_t* out,
+                  const GroupConsts<NW, DEG> g) {
+  constexpr int E = NW * DEG, WORDS = 3 * E;
+  __shared__ uint32_t win[kHornerMaxW * WORDS];  // column w at w * WORDS
+  __shared__ uint32_t S[kSlots * E];
+  __shared__ uint32_t X[3 * kMaxProducts * NW];
+  __shared__ uint32_t T[kOpCount];
+  const int lane = threadIdx.x;
+  load_ops(T);
+  for (int idx = lane; idx < W * WORDS; idx += 32) {
+    const int w = idx % W, i = idx / W;  // neighbouring lanes: neighbouring w
+    win[w * WORDS + i] = (uint32_t)s[(2 * i) * W + w] |
+                         ((uint32_t)s[(2 * i + 1) * W + w] << 16);
   }
-  store_point<NW, DEG>(out, 1, 0, acc);
+  __syncwarp();
+  for (int i = lane; i < WORDS; i += 32) S[i] = win[(W - 1) * WORDS + i];
+  for (int i = lane; i < E; i += 32) S[kB3 * E + i] = g.b3[i];
+  __syncwarp();
+  for (int w = W - 2; w >= 0; --w) {
+    for (int k = 0; k < c; ++k)
+      warp_double<NW, DEG>(S, X, T, g.f);
+    for (int i = lane; i < WORDS; i += 32) S[kX2 * E + i] = win[w * WORDS + i];
+    __syncwarp();
+    warp_add<NW, DEG>(S, X, T, g.f);
+  }
+  for (int i = lane; i < WORDS; i += 32) {
+    out[2 * i] = (int32_t)(S[i] & 0xffffu);
+    out[2 * i + 1] = (int32_t)(S[i] >> 16);
+  }
+}
+
+// Latency probe for Horner's chain bound (chip_smoke.py; not a port of a
+// TPU kernel): one warp, each lane squaring its own element of x n times,
+// each product waiting on the last, with the inlined product Horner uses
+// (per-lane values keep it on the vector pipeline, as in Horner).
+template <int NW>
+__global__ void mont_chain_kernel(uint32_t* x, long long n,
+                                  const FieldConsts<NW> c) {
+  uint32_t v[NW];
+  uint32_t* e = x + threadIdx.x * NW;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) v[j] = e[j];
+  for (long long i = 0; i < n; ++i) fp_mul<NW>(v, v, v, c);
+#pragma unroll
+  for (int j = 0; j < NW; ++j) e[j] = v[j];
 }
 
 // consts: words p[NW], 2p[NW], 3b[NW * DEG], n0
@@ -85,6 +145,7 @@ GroupConsts<NW, DEG> unpack(const uint32_t* w) {
   return g;
 }
 
+#ifndef DG16_HOST_CHECK
 inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -110,13 +171,23 @@ int launch_double(const int32_t* p, long long p_rs, long long p_cs,
 template <int NW, int DEG>
 int launch_horner(const int32_t* s, long long W, int c, int32_t* out,
                   const uint32_t* consts, cudaStream_t stream) {
-  horner_kernel<NW, DEG><<<1, 1, 0, stream>>>(s, W, c, out,
-                                              unpack<NW, DEG>(consts));
+  if (W < 2 || W > kHornerMaxW || c < 1) return (int)cudaErrorInvalidValue;
+  horner_kernel<NW, DEG><<<1, 32, 0, stream>>>(s, (int)W, c, out,
+                                               unpack<NW, DEG>(consts));
   return (int)cudaGetLastError();
 }
 
+template <int NW>
+int launch_mont_chain(uint32_t* x, long long n, const uint32_t* consts,
+                      cudaStream_t stream) {
+  mont_chain_kernel<NW><<<1, 32, 0, stream>>>(x, n, unpack<NW, 1>(consts).f);
+  return (int)cudaGetLastError();
+}
+#endif
+
 }  // namespace dg16
 
+#ifndef DG16_HOST_CHECK
 // C entry points (bound with ctypes). `deg` is the coordinate field's
 // extension degree (1: G1, 2: G2), `nw` the base field's 32-bit word count
 // (8 for BN254). Each returns cudaGetLastError() after its launch.
@@ -155,4 +226,14 @@ int dg16_limb_horner(int deg, int nw, const int32_t* s, long long W, int c,
   return (int)cudaErrorInvalidValue;
 }
 
+// x: 32 elements of nw words in [0, 2p) on the card, each squared n times
+// in place by its own lane; consts as for the G1 kernels.
+int dg16_mont_chain(int nw, uint32_t* x, long long n, const uint32_t* consts,
+                    void* stream) {
+  if (nw == 8)
+    return dg16::launch_mont_chain<8>(x, n, consts, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // extern "C"
+#endif

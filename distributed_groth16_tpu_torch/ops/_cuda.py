@@ -39,6 +39,7 @@ _ENTRIES = {
         "dg16_limb_add": [_I, _I, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _P],
         "dg16_limb_double": [_I, _I, _P, _LL, _LL, _P, _LL, _P, _P],
         "dg16_limb_horner": [_I, _I, _P, _LL, _I, _P, _P, _P],
+        "dg16_mont_chain": [_I, _P, _LL, _P, _P],
     },
     "ntt_small": {
         "dg16_ntt_small": [_P, _P, _P, _I, _I, _LL, _I, _P, _P],

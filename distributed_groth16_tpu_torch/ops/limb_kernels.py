@@ -363,6 +363,10 @@ class LimbGroup:
             torch.int32
         ).reshape(p.shape)
 
+    # kernel 3 stages at most this many window sums in shared memory
+    # (csrc/limb_group.cu kHornerMaxW): W = 64 is c = 4 over 256 bits
+    HORNER_MAX_W = 64
+
     def horner(self, s, c: int):
         """Window sums s (ROWS, W), LSB window first -> one point column:
         kernel 3 on CUDA, plain version on CPU."""
@@ -372,6 +376,11 @@ class LimbGroup:
         if s.device.type == "cpu":
             return self.plain_horner(s, c)
         _cuda.check_cuda_int32("horner s", s)
+        if W > self.HORNER_MAX_W or c < 1:
+            raise ValueError(
+                f"horner: kernel 3 takes 2 <= W <= {self.HORNER_MAX_W} "
+                f"window sums and c >= 1, got W = {W}, c = {c}"
+            )
         s = s.contiguous()
         out = torch.empty((self.ROWS, 1), dtype=torch.int32, device=s.device)
         _cuda.KERNELS[f"limb_horner_g{self.deg}"](

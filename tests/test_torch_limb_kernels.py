@@ -2,7 +2,9 @@
 distributed_groth16_tpu_torch) against the JAX package's XLA bodies — the
 same functions its Pallas kernels compile — limb for limb on redundant
 [0, 2p) inputs, plus kernels 1-3 against their plain versions on a card
-(skipped without one)."""
+(skipped without one): kernel 1 on msm_tree's strided pair halves and on a
+broadcast column, Horner at W in {2, 3, 32, 64} and c in {4, 8} on window
+sums with infinity, equal columns and a final P + P."""
 
 import numpy as np
 import pytest
@@ -180,19 +182,58 @@ def cuda():
     return torch.device("cuda")
 
 
+def _window_sums(tg, red, W, c):
+    """(ROWS, W) window sums for Horner: redundant [0, 2p) limbs; for
+    W >= 3 the top column is infinity (the combine starts there); for
+    W >= 4 two equal columns; and S_0 = 2^c S_1, so that the last add
+    meets P + P."""
+    s = red[:, torch.arange(W) % red.shape[1]].clone()
+    if W >= 3:
+        s[:, W - 1] = torch.as_tensor(tg.inf_col[:, 0])
+    if W >= 4:
+        s[:, 2] = s[:, 3]
+    col = s[:, 1:2]
+    for _ in range(c):
+        col = tg.plain_double(col)
+    s[:, 0:1] = col
+    return s
+
+
+KERNEL_CASES = (
+    ["add", "add_pair_halves", "add_broadcast_q", "double", "horner",
+     "horner_W65_raises"]
+    + [f"horner_W{W}_c{c}" for W in (2, 3, 32, 64) for c in (4, 8)]
+)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", ["g1", "g2"])
-@pytest.mark.parametrize("op", ["add", "double", "horner"])
+@pytest.mark.parametrize("op", KERNEL_CASES)
 def test_kernel_matches_plain_version(cuda, group, op):
     _, tg = _groups(group)[:2]
     red, canon = _lm_points(group, 300, 11)
     a = torch.as_tensor(red.astype(np.int32), device=cuda)
     b = torch.as_tensor(canon.astype(np.int32), device=cuda)
+    RR = tg.ROWS
     if op == "add":
         got, want = tg.add(a, b), tg.plain_add(a, b)
+    elif op == "add_pair_halves":  # msm_tree's strided views, no copies
+        pair = a[:, :256].reshape(RR, 4, 32, 2)
+        got = tg.add(pair[..., 0], pair[..., 1])
+        want = tg.plain_add(pair[..., 0], pair[..., 1])
+    elif op == "add_broadcast_q":  # one q column broadcast over p
+        got, want = tg.add(a, b[:, 5:6]), tg.plain_add(a, b[:, 5:6])
     elif op == "double":
         got, want = tg.double(a), tg.plain_double(a)
-    else:
+    elif op == "horner":
         got, want = tg.horner(a[:, :32], 8), tg.plain_horner(a[:, :32], 8)
+    elif op == "horner_W65_raises":  # more window sums than it stages
+        with pytest.raises(ValueError, match="W <= 64"):
+            tg.horner(a[:, :65], 4)
+        return
+    else:
+        W, c = (int(v[1:]) for v in op.split("_")[1:])
+        s = _window_sums(tg, a, W, c)
+        got, want = tg.horner(s, c), tg.plain_horner(s, c)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
