@@ -31,7 +31,8 @@ result line):
 
 Output: phase lines, then a {"kernels": [...]} line (launches on the main
 path and, as launches_mpc, on the MPC path; ms_per_proof, the summed
-device time in one warm proof; ptxas' registers and spills), the
+device time in one warm proof from torch.profiler's kernel records;
+ptxas' registers and spills), the
 nvidia-smi name/power-limit line, and last {"ok": true, "device": {...}}.
 """
 
@@ -436,8 +437,7 @@ def kernel_trace():
     """torch.profiler (CUPTI) over the block. Yields a dict that is filled
     on exit with each kernel's summed device time (per_kernel, ms), kernel
     1's split by launch width (add_by_columns: {row: {columns: [launches,
-    ms]}}), and busy_ms, the union of every device activity's interval;
-    per_kernel stays empty if the profiler recorded no kernel."""
+    ms]}}), and busy_ms, the union of every device activity's interval."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -483,34 +483,6 @@ def kernel_trace():
                     width_bucket(width), [0, 0.0])
                 cell[0] += 1
                 cell[1] += ms
-
-
-@contextmanager
-def kernel_events():
-    """While active, every kernel launch through _cuda.Kernel is bracketed
-    by two CUDA events on the current stream; yields {kernel name: [(start,
-    stop), ...]}. Read them after a synchronize."""
-    from distributed_groth16_tpu_torch.ops import _cuda
-
-    marks = {}
-    names = {id(k): name for name, k in _cuda.KERNELS.items()}
-    call = _cuda.Kernel.__call__
-
-    def timed(self, *args):
-        import torch
-
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        call(self, *args)
-        stop.record()
-        marks.setdefault(names[id(self)], []).append((start, stop))
-
-    _cuda.Kernel.__call__ = timed
-    try:
-        yield marks
-    finally:
-        _cuda.Kernel.__call__ = call
 
 
 def sha256_abc():
@@ -569,9 +541,7 @@ def phase_main_path(dev, circuit, log_m=15):
     launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     # each kernel's device time in one more warm proof, from the profiler's
-    # kernel records (else CUDA events around each launch, which also count
-    # the host's launch latency whenever the card is idle); the launch
-    # counts above are already read
+    # kernel records; the launch counts above are already read
     per_proof_ms = {k: 0.0 for k in _cuda.KERNELS}
     if dev.type == "cuda":
         with kernel_trace() as tr:
@@ -579,19 +549,13 @@ def phase_main_path(dev, circuit, log_m=15):
             proof3 = prove_single(pk, comp, z_mont)
             sync(dev)
             t_probed = (time.perf_counter() - t0) * 1e3
-        method = "torch.profiler"
         if not tr["per_kernel"]:
-            method = "cuda events"
-            with kernel_events() as marks:
-                proof3 = prove_single(pk, comp, z_mont)
-                sync(dev)
-            for k, evs in marks.items():
-                tr["per_kernel"][k] = sum(a.elapsed_time(b) for a, b in evs)
+            raise AssertionError("torch.profiler recorded no kernel")
         per_proof_ms.update(tr["per_kernel"])
         if proof3 != proof1:
             raise AssertionError("probed warm proof differs")
         log("main path kernel device ms per warm proof: " + json.dumps(dict(
-            method=method, per_kernel=per_proof_ms,
+            method="torch.profiler", per_kernel=per_proof_ms,
             total=sum(per_proof_ms.values()),
             add_by_columns=tr["add_by_columns"],
             device_busy_ms=tr["busy_ms"], probed_proof_wall=t_probed,

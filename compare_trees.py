@@ -3,8 +3,7 @@
 the main path's and the ladder's shapes) of two or more checkouts in one
 call on one card, in turns, so their kernel times can be compared.
 
-    python3 -m distributed_groth16_tpu_torch.tools.compare_trees \
-        [--main] [--out DIR] A B B A
+    python3 compare_trees.py [--main] [--out DIR] A B B A
 
 Each argument is the root of a checkout (for example the parent commit
 unpacked with `git archive`). Each turn runs in a fresh process from that

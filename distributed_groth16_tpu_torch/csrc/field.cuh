@@ -272,8 +272,9 @@ __device__ __forceinline__ void fp_mul(uint32_t* r, const uint32_t* a,
 
 // Coordinate field of a group: the base field (DEG = 1) or Fq2 =
 // Fq[u]/(u^2 + 1) (DEG = 2, words [c0 | c1]), with LimbFq2.make_ops'
-// Karatsuba sequence. INL: inline the Fp products.
-template <int NW, int DEG, bool INL = true>
+// Karatsuba sequence, its Fp products out of line (kernels 1 and 2 make
+// 14-42 of them per point; Horner calls fp_mul itself, inlined).
+template <int NW, int DEG>
 struct Ext {
   static constexpr int W = NW * DEG;
 
@@ -295,14 +296,14 @@ struct Ext {
                                              const uint32_t* b,
                                              const FieldConsts<NW>& c) {
     if constexpr (DEG == 1) {
-      fp_mul<NW, INL>(r, a, b, c);
+      fp_mul<NW, false>(r, a, b, c);
     } else {
       uint32_t t0[NW], t1[NW], sa[NW], sb[NW], s[NW];
-      fp_mul<NW, INL>(t0, a, b, c);
-      fp_mul<NW, INL>(t1, a + NW, b + NW, c);
+      fp_mul<NW, false>(t0, a, b, c);
+      fp_mul<NW, false>(t1, a + NW, b + NW, c);
       fp_add<NW>(sa, a, a + NW, c);
       fp_add<NW>(sb, b, b + NW, c);
-      fp_mul<NW, INL>(sa, sa, sb, c);
+      fp_mul<NW, false>(sa, sa, sb, c);
       fp_add<NW>(s, t0, t1, c);
       fp_sub<NW>(r, t0, t1, c);  // u^2 = -1
       fp_sub<NW>(r + NW, sa, s, c);

@@ -18,11 +18,11 @@ struct GroupConsts {
   uint32_t b3[NW * DEG];  // 3b, Montgomery
 };
 
-template <int NW, int DEG, bool INL>
+template <int NW, int DEG>
 __device__ __forceinline__ void pt_add(uint32_t* out, const uint32_t* P,
                                        const uint32_t* Q,
                                        const GroupConsts<NW, DEG>& g) {
-  using E = Ext<NW, DEG, INL>;
+  using E = Ext<NW, DEG>;
   constexpr int W = E::W;
   const auto& c = g.f;
   const uint32_t *X1 = P, *Y1 = P + W, *Z1 = P + 2 * W;
@@ -67,10 +67,10 @@ __device__ __forceinline__ void pt_add(uint32_t* out, const uint32_t* P,
   E::add(out + 2 * W, a, b, c);
 }
 
-template <int NW, int DEG, bool INL>
+template <int NW, int DEG>
 __device__ __forceinline__ void pt_double(uint32_t* out, const uint32_t* P,
                                           const GroupConsts<NW, DEG>& g) {
-  using E = Ext<NW, DEG, INL>;
+  using E = Ext<NW, DEG>;
   constexpr int W = E::W;
   const auto& c = g.f;
   const uint32_t *X = P, *Y = P + W, *Z = P + 2 * W;

@@ -19,9 +19,9 @@
 // 288 bytes moved per point; G2 triples the products), so every value
 // stays in registers. Both groups call one out-of-line product: inlined,
 // the 14 or 42 product sites outgrow the instruction cache and run slower
-// (tools/tune_kernels.py). One block of 128 threads per SM is all the
-// launch bounds ask: G1 then takes 118 registers, G2 235, with no spill;
-// forcing more blocks spills and runs slower.
+// (PERF.md). The launch bounds ask only for blocks of 128 threads: G1
+// then takes 118 registers, G2 235, with no spill; forcing more blocks
+// per SM spills and runs slower.
 //
 // Kernel 3 (Horner) is a W-1 step dependency chain on a single point:
 // latency, not throughput, bounds it. One warp owns the point. The W
@@ -37,28 +37,8 @@ namespace dg16 {
 constexpr int kThreads = 128;
 constexpr int kHornerMaxW = 64;  // window columns staged (c = 4: W = 64)
 
-// Kernel 1 per group: blocks of kThreads per SM that ptxas must fit (so at
-// most 65536 / (kThreads * MINB) registers a thread), and whether the
-// products are inlined. tools/tune_kernels.py builds other values with -D.
-#ifndef DG16_ADD_MINB_G1
-#define DG16_ADD_MINB_G1 1
-#endif
-#ifndef DG16_ADD_MINB_G2
-#define DG16_ADD_MINB_G2 1
-#endif
-#ifndef DG16_ADD_INL_G1
-#define DG16_ADD_INL_G1 0
-#endif
-#ifndef DG16_ADD_INL_G2
-#define DG16_ADD_INL_G2 0
-#endif
-template <int DEG>
-constexpr int kAddMinBlocks = DEG == 1 ? DG16_ADD_MINB_G1 : DG16_ADD_MINB_G2;
-template <int DEG>
-constexpr bool kAddInline = DEG == 1 ? DG16_ADD_INL_G1 : DG16_ADD_INL_G2;
-
 template <int NW, int DEG>
-__global__ void __launch_bounds__(kThreads, kAddMinBlocks<DEG>)
+__global__ void __launch_bounds__(kThreads)
     add_kernel(const int32_t* p, long long p_rs, long long p_cs,
                const int32_t* q, long long q_rs, long long q_cs, int32_t* out,
                long long n, const GroupConsts<NW, DEG> g) {
@@ -67,7 +47,7 @@ __global__ void __launch_bounds__(kThreads, kAddMinBlocks<DEG>)
   uint32_t P[3 * NW * DEG], Q[3 * NW * DEG];
   load_point<NW, DEG>(P, p, p_rs, j * p_cs);
   load_point<NW, DEG>(Q, q, q_rs, j * q_cs);
-  pt_add<NW, DEG, kAddInline<DEG>>(P, P, Q, g);
+  pt_add<NW, DEG>(P, P, Q, g);
   store_point<NW, DEG>(out, n, j, P);
 }
 
@@ -79,7 +59,7 @@ __global__ void __launch_bounds__(kThreads)
   if (j >= n) return;
   uint32_t P[3 * NW * DEG];
   load_point<NW, DEG>(P, p, p_rs, j * p_cs);
-  pt_double<NW, DEG, false>(P, P, g);
+  pt_double<NW, DEG>(P, P, g);
   store_point<NW, DEG>(out, n, j, P);
 }
 

@@ -17,7 +17,8 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "distributed_groth16_tpu_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "compare_trees.py"]
 PORT_MODULES = [
     "distributed_groth16_tpu_torch",
     "distributed_groth16_tpu_torch.ops._cuda",
@@ -243,7 +244,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["limb_add_g1", "limb_double_g2",
-                                  "limb_horner_g1", "ntt_small"])
+                                  "limb_horner_g1", "ntt_small",
+                                  "limb_add_g2", "limb_double_g1",
+                                  "limb_horner_g2"])
 def test_kernel_entries_exist_in_the_sources(name):
     from distributed_groth16_tpu_torch.ops import _cuda
 
