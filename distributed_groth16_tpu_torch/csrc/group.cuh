@@ -1,9 +1,11 @@
-// Group law (RCB16, a = 0) for the kernels of limb_group.cu, in two
+// Group law (RCB16, a = 0) for the kernels of limb_group.cu, in three
 // forms that follow LimbGroup.add_body and double_body of
 // ops/limb_kernels.py operation for operation:
 //
-// - pt_add / pt_double: one projective point per thread, every value in
-//   registers (kernels 1 and 2);
+// - pt_add: one projective point per thread, every value in registers
+//   (kernel 1);
+// - warps_double: one point per lane of three warps, each warp three of
+//   the products, values handed on through shared memory (kernel 2);
 // - warp_add / warp_double: one point per warp, the independent products
 //   of each formula step on different lanes (kernel 3, Horner).
 #pragma once
@@ -68,35 +70,6 @@ __device__ __forceinline__ void pt_add(uint32_t* out, const uint32_t* P,
 }
 
 template <int NW, int DEG>
-__device__ __forceinline__ void pt_double(uint32_t* out, const uint32_t* P,
-                                          const GroupConsts<NW, DEG>& g) {
-  using E = Ext<NW, DEG>;
-  constexpr int W = E::W;
-  const auto& c = g.f;
-  const uint32_t *X = P, *Y = P + W, *Z = P + 2 * W;
-  uint32_t t0[W], t1[W], t2[W], txy[W], z8[W], t2b[W], y3a[W], s[W];
-  E::mul(t0, Y, Y, c);
-  E::mul(t1, Y, Z, c);
-  E::mul(t2, Z, Z, c);
-  E::mul(txy, X, Y, c);
-  E::add(z8, t0, t0, c);
-  E::add(z8, z8, z8, c);
-  E::add(z8, z8, z8, c);  // 8 Y^2
-  E::mul(t2b, t2, g.b3, c);
-  E::add(y3a, t0, t2b, c);
-  E::add(s, t2b, t2b, c);
-  E::add(s, s, t2b, c);
-  E::sub(t0, t0, s, c);  // t0m = Y^2 - 3 * b3 Z^2
-  // P is dead from here on
-  E::mul(s, t2b, z8, c);         // X3g
-  E::mul(out + 2 * W, t1, z8, c);  // Z3
-  E::mul(t2, t0, y3a, c);        // Y3m
-  E::mul(t1, t0, txy, c);        // X3m
-  E::add(out + W, s, t2, c);
-  E::add(out, t1, t1, c);
-}
-
-template <int NW, int DEG>
 __device__ __forceinline__ void load_point(uint32_t* P, const int32_t* src,
                                            long long rs, long long col) {
   constexpr int WORDS = 3 * NW * DEG;
@@ -116,6 +89,155 @@ __device__ __forceinline__ void store_point(int32_t* dst, long long rs,
   for (int i = 0; i < WORDS; ++i) {
     dst[(2 * i) * rs + col] = (int32_t)(P[i] & 0xffffu);
     dst[(2 * i + 1) * rs + col] = (int32_t)(P[i] >> 16);
+  }
+}
+
+// -- the doubling spread over three warps (kernel 2) ---------------------
+//
+// A block of three warps doubles 32 points: lane l of every warp works on
+// point l, and warp w runs role w, three of double_body's nine products
+// each:
+//
+//   warp 0          | warp 1          | warp 2
+//   t2  = Z Z       | t0  = Y Y       | t1  = Y Z
+//   t2b = t2 3b     | txy = X Y       | Z3  = t1 z8
+//   X3g = t2b z8    | X3m = t0m txy   | Y3m = t0m y3a
+//
+// Values cross warps through a slot file in shared memory, each handed on
+// by a named barrier that its producer arrives at and its consumers wait
+// on: warp 1 hands on t0 and z8 = 8 t0 (kHandZ8), warp 0 y3a and
+// t0m = t0 - 3 t2b (kHandT0m), warp 2 Y3m (kHandY3m). A point waits the
+// chain t2 -> t2b -> t0m -> Y3m, 3 product latencies and not 9; a warp
+// runs one role for 32 points, so no lane idles or diverges, and each add
+// runs once, on the warp that needs it. Each value is the plain body's,
+// from the same operands, so the limbs are too. Every warp reaches its
+// barriers whatever its lanes hold; only live lanes load and store.
+
+// word k of slot s of the block's lane l at S[(s * W + k) * 32 + l]:
+// a warp reads and writes 32 neighbouring words
+constexpr int kSlotT0 = 0, kSlotZ8 = 1, kSlotY3a = 2, kSlotT0m = 3;
+constexpr int kSlotY3m = kSlotT0;  // t0 is dead once kHandT0m has passed
+constexpr int kDoubleSlots = 4;
+// named barriers (0 is __syncthreads) and how many threads meet at each
+constexpr int kHandZ8 = 1, kHandT0m = 2, kHandY3m = 3;
+
+#ifdef DG16_HOST_CHECK
+void bar_arrive(int id, int threads);  // tools/host_check.cpp
+void bar_wait(int id, int threads);
+#else
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_wait(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+#endif
+
+template <int W>
+__device__ __forceinline__ void put_slot(uint32_t* S, int slot, int lane,
+                                         const uint32_t* v) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) S[(slot * W + k) * 32 + lane] = v[k];
+}
+
+template <int W>
+__device__ __forceinline__ void get_slot(uint32_t* v, const uint32_t* S,
+                                         int slot, int lane) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) v[k] = S[(slot * W + k) * 32 + lane];
+}
+
+// coordinate `which` (0 X, 1 Y, 2 Z; W words) of the point in column col
+template <int W>
+__device__ __forceinline__ void load_coord(uint32_t* v, const int32_t* src,
+                                           long long rs, long long col,
+                                           int which, bool live) {
+  if (live) {
+    const int32_t* e = src + (long long)(2 * W * which) * rs + col;
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      v[i] = (uint32_t)e[(2 * i) * rs] | ((uint32_t)e[(2 * i + 1) * rs] << 16);
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) v[i] = 0;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_coord(int32_t* dst, long long rs,
+                                            long long col, int which,
+                                            const uint32_t* v) {
+  int32_t* e = dst + (long long)(2 * W * which) * rs + col;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    e[(2 * i) * rs] = (int32_t)(v[i] & 0xffffu);
+    e[(2 * i + 1) * rs] = (int32_t)(v[i] >> 16);
+  }
+}
+
+// Role `role` (the warp) of the block's doubling for the point in column j
+// (input column col = j * column stride) on `lane`; out is contiguous
+// (ROWS, n); S holds kDoubleSlots * W * 32 words.
+template <int NW, int DEG>
+__device__ __forceinline__ void warps_double(const int32_t* p, long long p_rs,
+                                             long long col, int32_t* out,
+                                             long long n, long long j,
+                                             bool live, int role, int lane,
+                                             uint32_t* S,
+                                             const GroupConsts<NW, DEG>& g) {
+  using E = Ext<NW, DEG>;
+  constexpr int W = E::W;
+  const auto& c = g.f;
+  uint32_t a[W], b[W], d[W];
+  if (role == 0) {
+    load_coord<W>(a, p, p_rs, col, 2, live);
+    E::mul(a, a, a, c);     // t2 = Z Z
+    E::mul(a, a, g.b3, c);  // t2b
+    bar_wait(kHandZ8, 96);
+    get_slot<W>(b, S, kSlotT0, lane);
+    E::add(d, b, a, c);
+    put_slot<W>(S, kSlotY3a, lane, d);  // y3a = t0 + t2b
+    E::add(d, a, a, c);
+    E::add(d, d, a, c);
+    E::sub(d, b, d, c);
+    put_slot<W>(S, kSlotT0m, lane, d);  // t0m = t0 - 3 t2b
+    bar_arrive(kHandT0m, 96);
+    get_slot<W>(b, S, kSlotZ8, lane);
+    E::mul(a, a, b, c);  // X3g = t2b z8
+    bar_wait(kHandY3m, 64);
+    get_slot<W>(b, S, kSlotY3m, lane);
+    E::add(a, a, b, c);  // Y3 = X3g + Y3m
+    if (live) store_coord<W>(out, n, j, 1, a);
+  } else if (role == 1) {
+    load_coord<W>(a, p, p_rs, col, 1, live);
+    load_coord<W>(b, p, p_rs, col, 0, live);
+    E::mul(d, a, a, c);  // t0 = Y Y
+    put_slot<W>(S, kSlotT0, lane, d);
+    E::add(d, d, d, c);
+    E::add(d, d, d, c);
+    E::add(d, d, d, c);
+    put_slot<W>(S, kSlotZ8, lane, d);  // z8 = 8 Y^2
+    bar_arrive(kHandZ8, 96);
+    E::mul(a, b, a, c);  // txy = X Y
+    bar_wait(kHandT0m, 96);
+    get_slot<W>(b, S, kSlotT0m, lane);
+    E::mul(a, b, a, c);  // X3m = t0m txy
+    E::add(a, a, a, c);  // X3 = X3m + X3m
+    if (live) store_coord<W>(out, n, j, 0, a);
+  } else {
+    load_coord<W>(a, p, p_rs, col, 1, live);
+    load_coord<W>(b, p, p_rs, col, 2, live);
+    E::mul(a, a, b, c);  // t1 = Y Z
+    bar_wait(kHandZ8, 96);
+    get_slot<W>(b, S, kSlotZ8, lane);
+    E::mul(a, a, b, c);  // Z3 = t1 z8
+    if (live) store_coord<W>(out, n, j, 2, a);
+    bar_wait(kHandT0m, 96);
+    get_slot<W>(a, S, kSlotT0m, lane);
+    get_slot<W>(b, S, kSlotY3a, lane);
+    E::mul(a, a, b, c);  // Y3m = t0m y3a
+    put_slot<W>(S, kSlotY3m, lane, a);
+    bar_arrive(kHandY3m, 64);
   }
 }
 

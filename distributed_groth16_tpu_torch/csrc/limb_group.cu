@@ -11,17 +11,29 @@
 // Layout: a batch is int32[ROWS, n] of 16-bit limbs, ROWS = 3 * CR with
 // CR = 16 (G1) or 32 (G2); rows X, Y, Z, each CR rows.
 //
-// Kernels 1 and 2: one thread owns one point column; neighbouring threads
-// read neighbouring addresses in every limb row, so each row load and
-// store is coalesced. Inputs may be strided views (row stride, column
-// stride), the ragged last block is masked, nothing is padded. What bounds
-// them: integer multiply-adds (a G1 add is 14 Montgomery products against
-// 288 bytes moved per point; G2 triples the products), so every value
-// stays in registers. Both groups call one out-of-line product: inlined,
-// the 14 or 42 product sites outgrow the instruction cache and run slower
+// Kernel 1: one thread owns one point column; neighbouring threads read
+// neighbouring addresses in every limb row, so each row load and store is
+// coalesced. Inputs may be strided views (row stride, column stride), the
+// ragged last block is masked, nothing is padded. What bounds it: integer
+// multiply-adds (a G1 add is 14 Montgomery products against 288 bytes
+// moved per point; G2 triples the products), so every value stays in
+// registers. Both groups call one out-of-line product: inlined, the 14 or
+// 42 product sites outgrow the instruction cache and run slower
 // (PERF.md). The launch bounds ask only for blocks of 128 threads: G1
 // then takes 118 registers, G2 235, with no spill; forcing more blocks
 // per SM spills and runs slower.
+//
+// Kernel 2 (the doubling of ladder_apply, on the MPC path only) runs at
+// 2-4 columns in every round's unpack and at 27,626-65,536 in the CRS
+// pack. At the narrow widths one point's chain of dependent products is
+// the whole launch; at the pack's widths the card holds a single wave of
+// one-point-per-thread blocks, issue-bound, whose load, product and store
+// phases do not overlap. So a point takes a lane in each of a block's
+// three warps (group.cuh warps_double): the chain falls from 9 product
+// latencies to 3, each warp issues only its own third of the products and
+// adds, and three times the threads fill the card in several waves, so one
+// wave's loads and stores overlap another's products. Same strides,
+// masking and out-of-line product as kernel 1.
 //
 // Kernel 3 (Horner) is a W-1 step dependency chain on a single point:
 // latency, not throughput, bounds it. One warp owns the point. The W
@@ -51,16 +63,18 @@ __global__ void __launch_bounds__(kThreads)
   store_point<NW, DEG>(out, n, j, P);
 }
 
+// a point per lane of three warps: 32 points a block
+constexpr int kDoubleThreads = 3 * 32;
+
 template <int NW, int DEG>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDoubleThreads)
     double_kernel(const int32_t* p, long long p_rs, long long p_cs,
                   int32_t* out, long long n, const GroupConsts<NW, DEG> g) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  uint32_t P[3 * NW * DEG];
-  load_point<NW, DEG>(P, p, p_rs, j * p_cs);
-  pt_double<NW, DEG>(P, P, g);
-  store_point<NW, DEG>(out, n, j, P);
+  __shared__ uint32_t S[kDoubleSlots * NW * DEG * 32];
+  const int lane = threadIdx.x & 31;
+  const long long j = (long long)blockIdx.x * 32 + lane;
+  warps_double<NW, DEG>(p, p_rs, j * p_cs, out, n, j, j < n,
+                        threadIdx.x / 32, lane, S, g);
 }
 
 // acc = sum_w 2^(c*w) * S_w over the W columns of s (LSB window first),
@@ -143,8 +157,9 @@ template <int NW, int DEG>
 int launch_double(const int32_t* p, long long p_rs, long long p_cs,
                   int32_t* out, long long n, const uint32_t* consts,
                   cudaStream_t stream) {
-  double_kernel<NW, DEG><<<blocks_for(n), kThreads, 0, stream>>>(
-      p, p_rs, p_cs, out, n, unpack<NW, DEG>(consts));
+  double_kernel<NW, DEG>
+      <<<(unsigned)((n + 31) / 32), kDoubleThreads, 0, stream>>>(
+          p, p_rs, p_cs, out, n, unpack<NW, DEG>(consts));
   return (int)cudaGetLastError();
 }
 

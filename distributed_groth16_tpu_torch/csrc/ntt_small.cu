@@ -14,84 +14,141 @@
 // butterflies, one thread per butterfly, __syncthreads() between stages,
 // and a natural-order store.
 //
-// What bounds it on the card: integer multiply-adds (one Montgomery
-// product per butterfly per stage) against 128 bytes moved per element;
-// shared memory keeps all stage intermediates on chip, so device memory
-// is touched once on the way in and once on the way out.
+// What bounds it at its path shapes, (16, 256, 128) and (16, 128, 256), the
+// two halves of a 2^15 transform: latency, and the device accesses around
+// it. A launch has 16,384 butterflies a stage, 512 warps, about one per
+// scheduler of the card's 132 SMs, so each stage costs one Montgomery
+// product's latency and a barrier, and the log2(S) stages form a chain;
+// the operations bound, which assumes a full card, is a fraction of that.
+// A column is a stride-L walk through memory, so with few columns a block
+// each 4-byte limb is a 32-byte sector of its own on the way in and out.
+// The design:
+//  - shared memory is laid out word-major, word k of element i of column
+//    col at sm[(k * cpb + col) * S + i]: a warp's butterflies read 32
+//    neighbouring words (stages >= 5) or words 2 apart (a 2-way bank
+//    conflict at most), where an element-major layout made 8- to 16-way
+//    conflicts on every word;
+//  - the S - 1 twiddles the block uses (stage s's at offset 2^s - 1) are
+//    staged in shared memory with the elements, instead of 16 scattered
+//    device loads per butterfly in every stage; a thread issues all its
+//    device loads (two elements, at most two twiddles) before it stores
+//    any, one round trip;
+//  - one butterfly a thread: two stages a barrier (radix 4) would halve
+//    the threads, and with one warp per scheduler a thread's second
+//    product waits for the multiply pipe rather than hiding a latency.
+// PERF.md times the parent's kernel and the alternatives tried: radix 4,
+// clusters of blocks that load and store whole sectors through
+// distributed shared memory, stages 0 and log2(S) - 1 run from registers.
 #include "field.cuh"
 
 namespace dg16 {
+
+// limbs 2k | 2k+1 << 16 of an element whose first limb is at e; limb rows
+// are `plane` apart
+template <int NW>
+__device__ __forceinline__ void load_elem(uint32_t* v, const int32_t* e,
+                                          long long plane, bool live) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k)
+    v[k] = live ? (uint32_t)e[(2 * k) * plane] |
+                      ((uint32_t)e[(2 * k + 1) * plane] << 16)
+                : 0u;
+}
+
+template <int NW>
+__device__ __forceinline__ void store_elem(int32_t* e, long long plane,
+                                           const uint32_t* v) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    e[(2 * k) * plane] = (int32_t)(v[k] & 0xffffu);
+    e[(2 * k + 1) * plane] = (int32_t)(v[k] >> 16);
+  }
+}
 
 template <int NW>
 __global__ void ntt_small_kernel(const int32_t* x, int32_t* out,
                                  const int32_t* tw, int S, int logS,
                                  long long L, int cpb,
                                  const FieldConsts<NW> c) {
-  extern __shared__ uint32_t sm[];  // [cpb][S][NW]
+#ifdef DG16_HOST_CHECK
+  uint32_t* sm = host_smem;
+#else
+  extern __shared__ uint32_t sm[];
+#endif
+  const int cs = cpb * S;          // words from one word plane to the next
+  uint32_t* tws = sm + NW * cs;    // word k of twiddle e at tws[k * S + e]
+  const int half = S / 2;
+  const int tw_row = logS * half;  // stride between twiddle limb rows
   const long long l0 = (long long)blockIdx.x * cpb;
   const long long plane = (long long)S * L;  // stride between limb rows
-  for (int idx = threadIdx.x; idx < cpb * S; idx += blockDim.x) {
-    int col = idx % cpb, i = idx / cpb;
-    long long l = l0 + col;
-    uint32_t* dst = sm + ((long long)col * S + i) * NW;
-    if (l < L) {
-      int src = (int)(__brev((unsigned)i) >> (32 - logS));
-      const int32_t* e = x + (long long)src * L + l;
+  // blockDim = cs / 2: a thread loads elements idx = tid, tid + blockDim
+  // (neighbouring threads on neighbouring columns) and twiddles e = tid,
+  // tid + blockDim below S - 1
+  uint32_t v[2][NW], u[2][NW];
 #pragma unroll
-      for (int w = 0; w < NW; ++w)
-        dst[w] = (uint32_t)e[(2 * w) * plane] |
-                 ((uint32_t)e[(2 * w + 1) * plane] << 16);
-    } else {
+  for (int r = 0; r < 2; ++r) {
+    const int idx = threadIdx.x + r * blockDim.x;
+    const int src = (int)(__brev((unsigned)(idx / cpb)) >> (32 - logS));
+    const long long l = l0 + idx % cpb;
+    load_elem<NW>(v[r], x + (long long)src * L + l, plane, l < L);
+    const int e = idx, s = 31 - __clz(e + 1), t = e + 1 - (1 << s);
+    load_elem<NW>(u[r], tw + s * half + t, tw_row, e < S - 1);
+  }
 #pragma unroll
-      for (int w = 0; w < NW; ++w) dst[w] = 0;
+  for (int r = 0; r < 2; ++r) {
+    const int idx = threadIdx.x + r * blockDim.x;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      sm[k * cs + (idx % cpb) * S + idx / cpb] = v[r][k];
+      if (idx < S - 1) tws[k * S + idx] = u[r][k];
     }
   }
   __syncthreads();
 
-  const int half = S / 2;
   const int col = threadIdx.x / half, b = threadIdx.x % half;
-  const int tw_row = logS * half;  // stride between twiddle limb rows
-  uint32_t* base = sm + (long long)col * S * NW;
+  uint32_t* base = sm + col * S;
   for (int s = 0; s < logS; ++s) {
     const int span = 1 << s;
     const int t = b & (span - 1);
     const int lo = ((b >> s) << (s + 1)) + t, hi = lo + span;
     uint32_t w[NW], a[NW], h[NW];
-    const int32_t* twp = tw + s * half + t;
 #pragma unroll
     for (int k = 0; k < NW; ++k) {
-      w[k] = (uint32_t)twp[(2 * k) * tw_row] |
-             ((uint32_t)twp[(2 * k + 1) * tw_row] << 16);
-      a[k] = base[lo * NW + k];
-      h[k] = base[hi * NW + k];
+      w[k] = tws[k * S + span - 1 + t];
+      a[k] = base[k * cs + lo];
+      h[k] = base[k * cs + hi];
     }
-    fp_mul<NW>(h, h, w, c);   // t = hi * w
-    fp_sub<NW>(w, a, h, c);   // lo - t
-    fp_add<NW>(a, a, h, c);   // lo + t
+    fp_mul<NW>(h, h, w, c);  // t = hi * w
+    fp_sub<NW>(w, a, h, c);  // lo - t
+    fp_add<NW>(a, a, h, c);  // lo + t
 #pragma unroll
     for (int k = 0; k < NW; ++k) {
-      base[lo * NW + k] = a[k];
-      base[hi * NW + k] = w[k];
+      base[k * cs + lo] = a[k];
+      base[k * cs + hi] = w[k];
     }
     __syncthreads();
   }
 
-  for (int idx = threadIdx.x; idx < cpb * S; idx += blockDim.x) {
-    int col2 = idx % cpb, i = idx / cpb;
-    long long l = l0 + col2;
-    if (l >= L) continue;
-    const uint32_t* v = sm + ((long long)col2 * S + i) * NW;
-    int32_t* e = out + (long long)i * L + l;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      e[(2 * w) * plane] = (int32_t)(v[w] & 0xffffu);
-      e[(2 * w + 1) * plane] = (int32_t)(v[w] >> 16);
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int idx = threadIdx.x + r * blockDim.x;
+    const long long l = l0 + idx % cpb;
+    const int i = idx / cpb;
+    uint32_t o[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) o[k] = sm[k * cs + (idx % cpb) * S + i];
+    if (l < L) store_elem<NW>(out + (long long)i * L + l, plane, o);
   }
+}
+
+// shared memory of a launch: the cpb columns' elements and the twiddles
+inline size_t ntt_smem_bytes(int S, int cpb) {
+  return (size_t)(cpb + 1) * S * 8 * sizeof(uint32_t);
 }
 
 }  // namespace dg16
 
+#ifndef DG16_HOST_CHECK
 extern "C" {
 
 // consts: words p[8], 2p[8], n0 of Fr. Threads per block: cpb * S / 2.
@@ -104,8 +161,8 @@ int dg16_ntt_small(const int32_t* x, int32_t* out, const int32_t* tw, int S,
   for (int i = 0; i < 8; ++i) c.p[i] = consts[i];
   for (int i = 0; i < 8; ++i) c.p2[i] = consts[8 + i];
   c.n0 = consts[16];
-  unsigned blocks = (unsigned)((L + cpb - 1) / cpb);
-  size_t smem = (size_t)cpb * S * 8 * sizeof(uint32_t);
+  const unsigned blocks = (unsigned)((L + cpb - 1) / cpb);
+  const size_t smem = dg16::ntt_smem_bytes(S, cpb);
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(dg16::ntt_small_kernel<8>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -117,3 +174,4 @@ int dg16_ntt_small(const int32_t* x, int32_t* out, const int32_t* tw, int S,
 }
 
 }  // extern "C"
+#endif

@@ -91,6 +91,7 @@ class _SmallNTT:
         self.inverse = inverse
         self.tw_np = _stage_twiddles(S, inverse)
         self.perm = bitrev_perm(S)
+        self.cpb = max(1, 256 // S)  # kernel 4's columns a block: 128 threads
         self._dev: dict = {}  # device -> (twiddles, bit-reversal index)
 
     def _tables(self, device):
@@ -118,10 +119,9 @@ class _SmallNTT:
         L = x.shape[2]
         out = torch.empty_like(x)
         tw, _ = self._tables(x.device)
-        cpb = max(1, 256 // self.S)  # 128 threads per block
         _cuda.KERNELS["ntt_small"](
             x.data_ptr(), out.data_ptr(), tw.data_ptr(), self.S, self.logn,
-            L, cpb, _ntt_consts().ctypes.data, _cuda.stream_ptr(out),
+            L, self.cpb, _ntt_consts().ctypes.data, _cuda.stream_ptr(out),
         )
         return out
 
