@@ -11,9 +11,14 @@ result line):
      csrc/ for sm_90a (one process per source, in parallel);
   3. kernels: each hand-written kernel against its plain PyTorch version
      on the card, at the shapes the main path gives it (and Horner also at
-     W = 2 and W = 64 window sums, c = 4), compared limb for limb
-     (tolerance zero: these are integers), and timed; Horner's chain bound
-     from the measured latency of one Montgomery product;
+     W = 2 and W = 64 window sums, c = 4), kernels 1 and 2 also at the MPC
+     ladder's widths (kernel 2 at the pack's and the king's unpack's, and
+     at ragged widths and on a strided view), kernel 4 also over S = 2 ...
+     256 and ragged column counts, compared limb for limb (tolerance zero:
+     these are integers), and timed: device time per launch from
+     torch.profiler's kernel records, and the wall time of a wrapper call;
+     chain bounds (Horner, kernels 2 and 4) from the measured latency of
+     one Montgomery product;
   4. main path: the SHA-256 single-block circuit (m = 2^15) through
      setup -> CompiledR1CS -> prove_single (cold, warm, and r, s != 0) ->
      verify, with the kernels' launch counters zeroed just before and read
@@ -27,12 +32,15 @@ result line):
      round over LocalSimNet (d_fft, the local tree MSMs with kernels 1 and
      3, the king's unpack), reassemble_proof -> verify; the proof equals
      phase 4's prove_single proof byte for byte; then a round at
-     r, s != 0 that must verify. Counters zeroed before, read after.
+     r, s != 0 that must verify. Counters zeroed before, read after. Then
+     a pack and a round under torch.profiler, for each kernel's device
+     time per MPC proof (kernels 1 and 2 split by launch width).
 
 Output: phase lines, then a {"kernels": [...]} line (launches on the main
-path and, as launches_mpc, on the MPC path; ms_per_proof, the summed
-device time in one warm proof from torch.profiler's kernel records;
-ptxas' registers and spills), the
+path and, as launches_mpc, on the MPC path; ms, the device time of one
+launch at the row's shape; ms_per_proof and ms_per_mpc_proof, the summed
+device time in one warm proof and in one MPC proof (pack + round) from
+torch.profiler's kernel records; ptxas' registers and spills), the
 nvidia-smi name/power-limit line, and last {"ok": true, "device": {...}}.
 """
 
@@ -95,6 +103,35 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int, tries: int = 3) -> float:
+    """Median device time (ms) of one launch of this repo's kernels over
+    `reps` calls of fn after one warm-up call, from torch.profiler's kernel
+    records (a wrapper call's wall time also holds its Python dispatch,
+    which exceeds the kernel at narrow widths). On the H100 an occasional
+    short trace holds no kernel record at all; such a trace is taken
+    again, up to `tries` traces."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        d = sorted(e.time_range.end - e.time_range.start
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and kernel_row(e.name))
+        if d:
+            return d[len(d) // 2] * 1e-3
+        log("device_ms: a trace held no kernel record; tracing again")
+    raise AssertionError(f"torch.profiler recorded no kernel in {tries} "
+                         "traces")
 
 
 class Bound:
@@ -235,6 +272,15 @@ def point_columns(g, base, n, dev, seed):
     return P.contiguous(), Q.contiguous()
 
 
+# kernel 2's columns in the king's unpackexp of every MPC round (d_msm:
+# B*K = 1 x n shares, doubled by GLV on G1, at n = 8 parties)
+UNPACK_COLUMNS = {"g1": 16, "g2": 8}
+# kernel 2 is also held at these widths (partial warps and blocks)
+DOUBLE_RAGGED = (1, 2, 3, 4, 5, 9, 33, 4097)
+# kernel 4 is also held at these sizes and column counts, both directions
+NTT_SIZES, NTT_RAGGED_L = (2, 4, 32, 64, 128, 256), (1, 3, 33, 129)
+
+
 def phase_kernels(dev, bound, rng, ladder, n=32 * 16384,
                   ntt=((256, 128), (128, 256))):
     """Phase 3: every kernel against its plain version on the card, by
@@ -242,7 +288,7 @@ def phase_kernels(dev, bound, rng, ladder, n=32 * 16384,
     a 2^15-point MSM over 32 windows, and (S, L) the two halves of a 2^15
     transform. `ladder` maps each group to ladder_apply's (add, double)
     columns on the MPC path (ladder_shapes): kernels 1 and 2 are held and
-    timed there too."""
+    timed there too, and kernel 2 at the unpack's UNPACK_COLUMNS."""
     import torch
 
     from distributed_groth16_tpu_torch.ops.fixedbase import fixed_base_mul
@@ -254,9 +300,9 @@ def phase_kernels(dev, bound, rng, ladder, n=32 * 16384,
     def measure(kind, RR, f, cols, kern, plain, err, reps=5):
         nbytes = (3 if kind == "add" else 2) * RR * cols * 4
         b_ms, b_by = bound(nbytes, FQ_MULS[kind] * f * cols)
-        return dict(shape=[RR, cols], ms=cuda_ms(kern, reps),
-                    plain_ms=cuda_ms(plain, 1), bound_ms=b_ms, bound_by=b_by,
-                    max_abs_err=err)
+        return dict(shape=[RR, cols], ms=device_ms(kern, reps),
+                    call_ms=cuda_ms(kern, reps), plain_ms=cuda_ms(plain, 1),
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
 
     entries = {}
     for gname, g in (("g1", lg1()), ("g2", lg2())):
@@ -300,6 +346,23 @@ def phase_kernels(dev, bound, rng, ladder, n=32 * 16384,
                 kind, RR, f, n_add if kind == "add" else n_dbl, kern, plain,
                 err,
             )
+        # kernel 2 at the unpack's width, at ragged widths (a point per
+        # lane of a block's three warps: partial warps and blocks) and on a
+        # column-strided view, with infinity among redundant coordinates
+        inf = torch.as_tensor(g.inf_col, device=dev)
+        for m in DOUBLE_RAGGED:
+            x = lred[:, :m].clone()
+            x[:, 1::3] = inf
+            compare(f"double_{gname} n={m}", g.double(x), g.plain_double(x))
+        xs = lred[:, : 2 * 4097 : 2]
+        compare(f"double_{gname} column stride 2", g.double(xs),
+                g.plain_double(xs))
+        m = UNPACK_COLUMNS[gname]
+        x = lred[:, 3099 : 3099 + m].contiguous()  # an infinity, then points
+        err = compare(f"unpack double_{gname}", g.double(x), g.plain_double(x))
+        entries[f"limb_double_{gname}"]["unpack"] = measure(
+            "double", RR, f, m, lambda: g.double(x),
+            lambda: g.plain_double(x), err, reps=20)
         # without GLV signs (G2) the ladder's addend (ROWS, B, 1, K) is
         # broadcast to the accumulator, and the add wrapper copies it to
         # (ROWS, B*o*K) once per ladder step: the time of that copy
@@ -320,14 +383,15 @@ def phase_kernels(dev, bound, rng, ladder, n=32 * 16384,
         s2[:, 0:1] = col
         hs[(2, 4)] = s2
         s64 = red[:, 1000:1064].clone()  # 1024.. are infinity + Q
-        s64[:, 63] = torch.as_tensor(g.inf_col[:, 0], device=dev)
+        s64[:, 63] = inf[:, 0]
         s64[:, 7] = s64[:, 8]
         hs[(64, 4)] = s64
         cases = []
         for (W, c), s in hs.items():
             err = compare(f"horner_{gname} W={W} c={c}", g.horner(s, c),
                           g.plain_horner(s, c))
-            cases.append(dict(W=W, c=c, ms=cuda_ms(lambda: g.horner(s, c), 3),
+            cases.append(dict(W=W, c=c, ms=device_ms(lambda: g.horner(s, c),
+                                                     3),
                               max_abs_err=err))
         W, c = 32, 8
         s = hs[(W, c)]
@@ -338,17 +402,25 @@ def phase_kernels(dev, bound, rng, ladder, n=32 * 16384,
         # per add, each Fq2 product's Fp products side by side
         depth = (W - 1) * (3 * c + 3)
         entries[f"limb_horner_{gname}"] = dict(
-            shape=[RR, W], ms=cases[0]["ms"], plain_ms=p_ms, bound_ms=b_ms,
-            bound_by=b_by, max_abs_err=0, kind="horner", cases=cases,
-            chain_depth=depth, source=SOURCES["limb_group"],
+            shape=[RR, W], ms=cases[0]["ms"],
+            call_ms=cuda_ms(lambda: g.horner(s, c), 3), plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=0, kind="horner",
+            cases=cases, chain_depth=depth, source=SOURCES["limb_group"],
         )
+        # kernel 2's chain: 3 dependent products (t2, t2b, Y3m), each an
+        # Fq2 product of 3 Fp products in a row on G2
+        entries[f"limb_double_{gname}"]["chain_depth"] = 3 * f
         log(f"phase kernels {gname}: ok")
     lat = product_latency_us(dev, lg1(), rng)
-    for gname in ("g1", "g2"):
-        e = entries[f"limb_horner_{gname}"]
-        e["product_latency_us"] = lat
-        e["chain_bound_ms"] = e["chain_depth"] * lat * 1e-3
 
+    for S in NTT_SIZES:
+        for L in NTT_RAGGED_L:
+            x = torch.as_tensor(random_fr_limbs(rng, (S, L), 2 * R),
+                                device=dev)
+            for inverse in (False, True):
+                nt = _small(S, inverse)
+                compare(f"ntt_small {S}x{L} inv={inverse}", nt(x),
+                        nt.plain(x))
     ntt_runs = []
     for S, L in ntt:
         # values below 2p: the second stage of a transform sees redundant
@@ -358,25 +430,29 @@ def phase_kernels(dev, bound, rng, ladder, n=32 * 16384,
             nt = _small(S, inverse)
             err = compare(f"ntt_small {S}x{L} inv={inverse}", nt(x),
                           nt.plain(x))
-            k_ms = cuda_ms(lambda: nt(x), 10)
-            p_ms = cuda_ms(lambda: nt.plain(x), 1)
             logS = S.bit_length() - 1
             nbytes = 2 * 16 * S * L * 4 + 16 * logS * (S // 2) * 4
             b_ms, b_by = bound(nbytes, (S // 2) * logS * L)
             ntt_runs.append(dict(
-                shape=[16, S, L], inverse=inverse, ms=k_ms, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                shape=[16, S, L], inverse=inverse, ms=device_ms(
+                    lambda: nt(x), 10), call_ms=cuda_ms(lambda: nt(x), 10),
+                plain_ms=cuda_ms(lambda: nt.plain(x), 1), bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, chain_depth=logS,
             ))
     fwd = [r for r in ntt_runs if not r["inverse"]]
+    # one 2^15 transform = the two forward launches above; its chain is
+    # log2(S) dependent products in each
     entries["ntt_small"] = dict(
         shape=[fwd[0]["shape"], fwd[1]["shape"]],
-        # one 2^15 transform = the two forward launches above
-        ms=fwd[0]["ms"] + fwd[1]["ms"],
-        plain_ms=fwd[0]["plain_ms"] + fwd[1]["plain_ms"],
-        bound_ms=fwd[0]["bound_ms"] + fwd[1]["bound_ms"],
+        **{k: fwd[0][k] + fwd[1][k] for k in ("ms", "call_ms", "plain_ms",
+                                              "bound_ms", "chain_depth")},
         bound_by=fwd[0]["bound_by"], max_abs_err=0, kind="ntt_small",
         source=SOURCES["ntt_small"],
     )
+    for e in entries.values():
+        if "chain_depth" in e:
+            e["product_latency_us"] = lat
+            e["chain_bound_ms"] = e["chain_depth"] * lat * 1e-3
     log("phase kernels ntt: " + json.dumps(ntt_runs))
     return entries
 
@@ -429,14 +505,19 @@ def kernel_row(kname: str):
 
 def width_bucket(columns: int) -> str:
     return (">=65536" if columns >= 65536
-            else "4096-65535" if columns >= 4096 else "<4096")
+            else "4096-65535" if columns >= 4096
+            else "5-4095" if columns > 4 else "<=4")
+
+
+# argument of a kernel entry that holds its launch's columns (kernels 1, 2)
+WIDTH_ARG = {"limb_add": 9, "limb_double": 6}
 
 
 @contextmanager
 def kernel_trace():
     """torch.profiler (CUPTI) over the block. Yields a dict that is filled
-    on exit with each kernel's summed device time (per_kernel, ms), kernel
-    1's split by launch width (add_by_columns: {row: {columns: [launches,
+    on exit with each kernel's summed device time (per_kernel, ms), kernels
+    1 and 2 split by launch width (by_columns: {row: {columns: [launches,
     ms]}}), and busy_ms, the union of every device activity's interval."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -450,9 +531,10 @@ def kernel_trace():
     def recorded(self, *args):
         call(self, *args)
         name = names[id(self)]
-        order.append((name, args[9] if name.startswith("limb_add") else None))
+        arg = WIDTH_ARG.get(name[:-3])
+        order.append((name, None if arg is None else args[arg]))
 
-    res = {"per_kernel": {}, "add_by_columns": {}, "busy_ms": None}
+    res = {"per_kernel": {}, "by_columns": {}, "busy_ms": None}
     _cuda.Kernel.__call__ = recorded
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -479,7 +561,7 @@ def kernel_trace():
     if [r for r, _ in ours] == [r for r, _ in order]:
         for (row, ms), (_, width) in zip(ours, order):
             if width is not None:
-                cell = res["add_by_columns"].setdefault(row, {}).setdefault(
+                cell = res["by_columns"].setdefault(row, {}).setdefault(
                     width_bucket(width), [0, 0.0])
                 cell[0] += 1
                 cell[1] += ms
@@ -557,7 +639,7 @@ def phase_main_path(dev, circuit, log_m=15):
         log("main path kernel device ms per warm proof: " + json.dumps(dict(
             method="torch.profiler", per_kernel=per_proof_ms,
             total=sum(per_proof_ms.values()),
-            add_by_columns=tr["add_by_columns"],
+            by_columns=tr["by_columns"],
             device_busy_ms=tr["busy_ms"], probed_proof_wall=t_probed,
         )))
     if proof0 != proof1:
@@ -681,6 +763,36 @@ def phase_mpc(dev, ctx, l=2):
         raise AssertionError("r, s != 0 gave the r = s = 0 proof")
     log(f"mpc path r, s != 0: verifies, round {king['round']:.1f} ms")
 
+    # each kernel's device time in one MPC proof: a pack and an r = s = 0
+    # round under the profiler (the launch counts above are already read)
+    per_mpc_ms = {k: 0.0 for k in _cuda.KERNELS}
+    if dev.type == "cuda":
+        traces = {}
+        for part in ("pack", "round"):
+            with kernel_trace() as tr:
+                t0 = time.perf_counter()
+                if part == "pack":
+                    pack_proving_key(pk, pp)
+                else:
+                    res, _ = round_()
+                sync(dev)
+                tr["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            if not tr["per_kernel"]:
+                raise AssertionError("torch.profiler recorded no kernel")
+            traces[part] = tr
+            for k, ms in tr["per_kernel"].items():
+                per_mpc_ms[k] += ms
+        if proof_bytes(reassemble_proof(res[0], pk)) != proof_bytes(proof):
+            raise AssertionError("profiled MPC round gave another proof")
+        log("mpc path kernel device ms per MPC proof (pack + round): "
+            + json.dumps(dict(method="torch.profiler", per_kernel=per_mpc_ms,
+                              total=sum(per_mpc_ms.values()),
+                              **{part: dict(per_kernel=tr["per_kernel"],
+                                            by_columns=tr["by_columns"],
+                                            device_busy_ms=tr["busy_ms"],
+                                            wall_ms=tr["wall_ms"])
+                                 for part, tr in traces.items()})))
+
     # where the time goes, from a warm pack and a third r = s = 0 round
     # with the device drained around each probed call (so these totals
     # run a little slower than the unprobed ones above)
@@ -710,7 +822,7 @@ def phase_mpc(dev, ctx, l=2):
     if proof_bytes(reassemble_proof(res[0], pk)) != proof_bytes(proof):
         raise AssertionError("probed MPC round gave another proof")
     log("mpc path round, ms by work: " + json.dumps(t))
-    return launches
+    return launches, per_mpc_ms
 
 
 def phase_byte_identity(dev, length=2046, log_m=11):
@@ -784,16 +896,17 @@ def main() -> int:
     entries = phase_kernels(dev, bound, rng, ladder)
     launches, per_proof_ms, ctx = phase_main_path(dev, circuit)
     phase_byte_identity(dev)
-    launches_mpc = phase_mpc(dev, ctx)
+    launches_mpc, per_mpc_ms = phase_mpc(dev, ctx)
 
     # every kernel launches on at least one path: kernel 2 (double) only on
     # the MPC path's ladder, kernel 4 (ntt_small) only on the main path.
     # Every row's own numbers are at the main path's shape (as in slice 1);
     # kernels 1 and 2 carry theirs at ladder_apply's widest shape in
-    # at_ladder
+    # at_ladder, kernel 2 at the king's unpack in at_unpack
     rows = []
     for key, e in entries.items():
-        err = max(e["max_abs_err"], e.get("ladder", e)["max_abs_err"])
+        err = max(e[k]["max_abs_err"] if k else e["max_abs_err"]
+                  for k in (None, "ladder", "unpack") if k is None or k in e)
         row = dict(
             name=key, route="cuda", source=e["source"],
             replaces=REPLACES[e["kind"]], shape=e["shape"],
@@ -801,7 +914,8 @@ def main() -> int:
             max_abs_err=err, match=err == 0, ms=e["ms"], kernel_ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=None,
-            ms_per_proof=per_proof_ms[key],
+            call_ms=e["call_ms"], ms_per_proof=per_proof_ms[key],
+            ms_per_mpc_proof=per_mpc_ms[key],
         )
         for extra in ("cases", "chain_depth", "product_latency_us",
                       "chain_bound_ms"):
@@ -809,13 +923,16 @@ def main() -> int:
                 row[extra] = e[extra]
         if "ladder" in e:
             row["at_ladder"] = e["ladder"]
+        if "unpack" in e:
+            row["at_unpack"] = e["unpack"]
         info = [v for f, v in ptxas.items() if PTXAS_NAMES[key] in f]
         if info:  # empty when the libraries were built by an earlier run
             row["ptxas"] = dict(info[0])
             if "registers" in info[0] and key.startswith(("limb_add",
                                                           "limb_double")):
                 row["ptxas"]["warps_per_sm"] = warps_per_sm(
-                    info[0]["registers"])
+                    info[0]["registers"],
+                    96 if key.startswith("limb_double") else 128)
         if row["launches"] + row["launches_mpc"] == 0:
             raise AssertionError(f"no path launched {key}")
         rows.append(row)

@@ -24,16 +24,17 @@
 // per SM spills and runs slower.
 //
 // Kernel 2 (the doubling of ladder_apply, on the MPC path only) runs at
-// 2-4 columns in every round's unpack and at 27,626-65,536 in the CRS
+// 8-16 columns in every round's unpack and at 27,626-65,536 in the CRS
 // pack. At the narrow widths one point's chain of dependent products is
-// the whole launch; at the pack's widths the card holds a single wave of
-// one-point-per-thread blocks, issue-bound, whose load, product and store
+// the whole launch; at the pack's widths one point per thread is a single
+// wave of blocks, bound by issue slots, whose load, product and store
 // phases do not overlap. So a point takes a lane in each of a block's
 // three warps (group.cuh warps_double): the chain falls from 9 product
 // latencies to 3, each warp issues only its own third of the products and
-// adds, and three times the threads fill the card in several waves, so one
-// wave's loads and stores overlap another's products. Same strides,
-// masking and out-of-line product as kernel 1.
+// adds (a point per few lanes of one warp would idle lanes and repeat the
+// adds on each), and three times the threads fill the card in several
+// waves, so one wave's loads and stores overlap another's products. Same
+// strides, masking and out-of-line product as kernel 1.
 //
 // Kernel 3 (Horner) is a W-1 step dependency chain on a single point:
 // latency, not throughput, bounds it. One warp owns the point. The W

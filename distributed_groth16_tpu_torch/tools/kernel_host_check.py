@@ -8,11 +8,12 @@ for limb against the plain PyTorch versions.
 
     python3 -m distributed_groth16_tpu_torch.tools.kernel_host_check
 
-Cases: kernel 1 at 24 columns; kernel 2 at ragged widths (a point per three
-lanes: partial groups, warps and blocks) and on a strided input; Horner at
-W = 2, 3, 5, 32, 64; kernel 4 at S = 2 ... 256 on ragged column counts
-(an odd and an even number of stages), both directions. Inputs carry
-redundant [0, 2p) values, and the points infinity and repeats.
+Cases: kernel 1 at 24 columns; kernel 2 at ragged widths (a point per lane
+of a block's three warps: partial warps and blocks) and on a strided
+input; Horner at W = 2, 3, 5, 32, 64; kernel 4 at S = 2 ... 256 on ragged
+column counts (an odd and an even number of stages), both directions.
+Inputs carry redundant [0, 2p) values, and the points infinity and
+repeats.
 
 It checks the arithmetic, the step order and the lane and thread
 exchanges, not the PTX: only a run on the card (chip_smoke.py phase 3)
@@ -173,8 +174,7 @@ def check(exe: Path, kernel: str, gname: str) -> list[str]:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.parse_args()
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory() as tmp:
         exe = build(Path(tmp))

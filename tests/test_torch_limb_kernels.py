@@ -3,8 +3,9 @@ distributed_groth16_tpu_torch) against the JAX package's XLA bodies — the
 same functions its Pallas kernels compile — limb for limb on redundant
 [0, 2p) inputs, plus kernels 1-3 against their plain versions on a card
 (skipped without one): kernel 1 on msm_tree's strided pair halves and on a
-broadcast column, Horner at W in {2, 3, 32, 64} and c in {4, 8} on window
-sums with infinity, equal columns and a final P + P."""
+broadcast column, kernel 2 at ragged widths, on a strided view and at the
+MPC ladder's widest doubling, Horner at W in {2, 3, 32, 64} and c in
+{4, 8} on window sums with infinity, equal columns and a final P + P."""
 
 import numpy as np
 import pytest
@@ -235,5 +236,33 @@ def test_kernel_matches_plain_version(cuda, group, op):
         W, c = (int(v[1:]) for v in op.split("_")[1:])
         s = _window_sums(tg, a, W, c)
         got, want = tg.horner(s, c), tg.plain_horner(s, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+# kernel 2 gives a point a lane in each of a block's three warps, 32 points
+# a block: widths that leave warps and blocks partly idle
+DOUBLE_WIDTHS = [1, 2, 3, 4, 5, 9, 33, 4097]
+# ladder_apply's widest doubling when the CRS pack of SHA-256 (m = 2^15,
+# l = 2) runs on the card: h_query's B*K on G1, b_g2_query's on G2
+LADDER_DOUBLE = {"g1": 65536, "g2": 27626}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("width", DOUBLE_WIDTHS + ["strided", "ladder"])
+def test_double_kernel_matches_plain_version(cuda, group, width):
+    """Kernel 2 on redundant coordinates with infinity in every third
+    column: at ragged widths, on every other column of a batch (column
+    stride 2) and at the ladder's widest doubling."""
+    _, tg = _groups(group)[:2]
+    red, _ = _lm_points(group, 300, 11)
+    n = {"strided": 2 * 4097, "ladder": LADDER_DOUBLE[group]}.get(width, width)
+    a = torch.as_tensor(red.astype(np.int32), device=cuda)
+    a = a[:, torch.arange(n, device=cuda) % a.shape[1]]
+    a[:, 1::3] = torch.as_tensor(tg.inf_col, device=cuda)
+    if width == "strided":
+        a = a[:, ::2]
+    got, want = tg.double(a), tg.plain_double(a)
     torch.cuda.synchronize()
     assert torch.equal(got, want)

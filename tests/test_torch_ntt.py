@@ -1,7 +1,9 @@
 """The port's NTTs (ops/ntt_limb.py and ops/ntt.py of
 distributed_groth16_tpu_torch) against the JAX package on the same seeded
 inputs, limb for limb (integers: tolerance zero), plus kernel 4 against its
-plain version on a card (skipped without one)."""
+plain version on a card (skipped without one): at the two halves of a 2^15
+transform, and at S = 2 ... 256 (odd and even numbers of stages) on ragged
+column counts, both directions."""
 
 import random
 
@@ -105,8 +107,12 @@ def test_domain_coset_and_elements_match_host():
     assert [int(v) for v in F.decode(got.numpy())] == ref.fft(vals)
 
 
+NTT_KERNEL_SHAPES = [(256, 128), (128, 256), (8, 5)] + [
+    (S, L) for S in (2, 4, 32, 64, 128, 256) for L in (1, 3, 33, 129)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,L", [(256, 128), (128, 256), (8, 5)])
+@pytest.mark.parametrize("S,L", NTT_KERNEL_SHAPES)
 @pytest.mark.parametrize("inverse", [False, True])
 def test_kernel_matches_plain_version(S, L, inverse):
     if not torch.cuda.is_available():
