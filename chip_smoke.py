@@ -494,12 +494,14 @@ def probes(dev, targets: dict):
 
 
 def kernel_row(kname: str):
-    """The kernels-line row of a demangled device function name, or None."""
+    """The kernels-line row of a demangled device function name, or None:
+    dg16::add_kernel<12, 2> is limb_add_g2_w12."""
+    from distributed_groth16_tpu_torch.ops._cuda import kernel_name
+
     k = kname.replace(" ", "")
-    for op in ("add", "double", "horner"):
-        for deg in (1, 2):
-            if f"dg16::{op}_kernel<8,{deg}>" in k:
-                return f"limb_{op}_g{deg}"
+    m = re.search(r"dg16::(add|double|horner)_kernel<(\d+),(\d+)>", k)
+    if m:
+        return kernel_name(m.group(1), int(m.group(3)), int(m.group(2)))
     return "ntt_small" if "dg16::ntt_small_kernel" in k else None
 
 

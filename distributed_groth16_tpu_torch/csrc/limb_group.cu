@@ -1,6 +1,8 @@
 // Kernels 1-3: complete projective add, doubling and the MSM window
-// combine (Horner) for short-Weierstrass groups with a = 0 (BN254 G1 over
-// Fq, G2 over Fq2), on limb-major point batches.
+// combine (Horner) for short-Weierstrass groups with a = 0 (G1 over Fq,
+// G2 over Fq2), on limb-major point batches. Each is instantiated for
+// base fields of 8 32-bit words (BN254) and 12 words (BLS12-377 and
+// BLS12-381, 4q < 2^384 for both).
 //
 // Replace the Pallas TPU kernels of distributed_groth16_tpu/ops/
 // limb_kernels.py: LimbGroup._pallas_add (body add_body), _pallas_double
@@ -9,7 +11,7 @@
 // and 9), so results equal the plain PyTorch versions limb for limb.
 //
 // Layout: a batch is int32[ROWS, n] of 16-bit limbs, ROWS = 3 * CR with
-// CR = 16 (G1) or 32 (G2); rows X, Y, Z, each CR rows.
+// CR = 2 * NW (G1) or 4 * NW (G2); rows X, Y, Z, each CR rows.
 //
 // Kernel 1: one thread owns one point column; neighbouring threads read
 // neighbouring addresses in every limb row, so each row load and store is
@@ -48,13 +50,43 @@
 namespace dg16 {
 
 constexpr int kThreads = 128;
-constexpr int kHornerMaxW = 64;  // window columns staged (c = 4: W = 64)
+// window columns staged: c = 4 over a 17-limb Fr381 standard form gives
+// W = 68; at <12, 2> that is 68 * 72 words, 19.6 KB of shared memory
+constexpr int kHornerMaxW = 68;
+
+// kernel 1 streams its operands from memory (group.cuh pt_add_streamed)
+// where the two would not fit in registers beside the formula's
+// temporaries: G2 at 12 words
+template <int NW, int DEG>
+constexpr bool kStreamAdd = NW * DEG > 16;
 
 template <int NW, int DEG>
 __global__ void __launch_bounds__(kThreads)
     add_kernel(const int32_t* p, long long p_rs, long long p_cs,
                const int32_t* q, long long q_rs, long long q_cs, int32_t* out,
                long long n, const GroupConsts<NW, DEG> g) {
+  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  if constexpr (kStreamAdd<NW, DEG>) {
+    pt_add_streamed<NW, DEG>(p, p_rs, j * p_cs, q, q_rs, j * q_cs, out, n, j,
+                             g);
+  } else {
+    uint32_t P[3 * NW * DEG], Q[3 * NW * DEG];
+    load_point<NW, DEG>(P, p, p_rs, j * p_cs);
+    load_point<NW, DEG>(Q, q, q_rs, j * q_cs);
+    pt_add<NW, DEG>(P, P, Q, g);
+    store_point<NW, DEG>(out, n, j, P);
+  }
+}
+
+// The all-in-registers add at every size, for the comparison with the
+// streamed one (experiments/kernel1_w12)
+template <int NW, int DEG>
+__global__ void __launch_bounds__(kThreads)
+    add_resident_kernel(const int32_t* p, long long p_rs, long long p_cs,
+                        const int32_t* q, long long q_rs, long long q_cs,
+                        int32_t* out, long long n,
+                        const GroupConsts<NW, DEG> g) {
   long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   uint32_t P[3 * NW * DEG], Q[3 * NW * DEG];
@@ -155,6 +187,16 @@ int launch_add(const int32_t* p, long long p_rs, long long p_cs,
 }
 
 template <int NW, int DEG>
+int launch_add_resident(const int32_t* p, long long p_rs, long long p_cs,
+                        const int32_t* q, long long q_rs, long long q_cs,
+                        int32_t* out, long long n, const uint32_t* consts,
+                        cudaStream_t stream) {
+  add_resident_kernel<NW, DEG><<<blocks_for(n), kThreads, 0, stream>>>(
+      p, p_rs, p_cs, q, q_rs, q_cs, out, n, unpack<NW, DEG>(consts));
+  return (int)cudaGetLastError();
+}
+
+template <int NW, int DEG>
 int launch_double(const int32_t* p, long long p_rs, long long p_cs,
                   int32_t* out, long long n, const uint32_t* consts,
                   cudaStream_t stream) {
@@ -186,7 +228,8 @@ int launch_mont_chain(uint32_t* x, long long n, const uint32_t* consts,
 #ifndef DG16_HOST_CHECK
 // C entry points (bound with ctypes). `deg` is the coordinate field's
 // extension degree (1: G1, 2: G2), `nw` the base field's 32-bit word count
-// (8 for BN254). Each returns cudaGetLastError() after its launch.
+// (8 for BN254, 12 for BLS12-377/381; any other returns
+// cudaErrorInvalidValue). Each returns cudaGetLastError() after its launch.
 extern "C" {
 
 int dg16_limb_add(int deg, int nw, const int32_t* p, long long p_rs,
@@ -198,6 +241,21 @@ int dg16_limb_add(int deg, int nw, const int32_t* p, long long p_rs,
     return dg16::launch_add<8, 1>(p, p_rs, p_cs, q, q_rs, q_cs, out, n, consts, st);
   if (nw == 8 && deg == 2)
     return dg16::launch_add<8, 2>(p, p_rs, p_cs, q, q_rs, q_cs, out, n, consts, st);
+  if (nw == 12 && deg == 1)
+    return dg16::launch_add<12, 1>(p, p_rs, p_cs, q, q_rs, q_cs, out, n, consts, st);
+  if (nw == 12 && deg == 2)
+    return dg16::launch_add<12, 2>(p, p_rs, p_cs, q, q_rs, q_cs, out, n, consts, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int dg16_limb_add_resident(int deg, int nw, const int32_t* p, long long p_rs,
+                           long long p_cs, const int32_t* q, long long q_rs,
+                           long long q_cs, int32_t* out, long long n,
+                           const uint32_t* consts, void* stream) {
+  auto st = (cudaStream_t)stream;
+  if (nw == 12 && deg == 2)
+    return dg16::launch_add_resident<12, 2>(p, p_rs, p_cs, q, q_rs, q_cs, out,
+                                            n, consts, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -209,6 +267,10 @@ int dg16_limb_double(int deg, int nw, const int32_t* p, long long p_rs,
     return dg16::launch_double<8, 1>(p, p_rs, p_cs, out, n, consts, st);
   if (nw == 8 && deg == 2)
     return dg16::launch_double<8, 2>(p, p_rs, p_cs, out, n, consts, st);
+  if (nw == 12 && deg == 1)
+    return dg16::launch_double<12, 1>(p, p_rs, p_cs, out, n, consts, st);
+  if (nw == 12 && deg == 2)
+    return dg16::launch_double<12, 2>(p, p_rs, p_cs, out, n, consts, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -219,6 +281,10 @@ int dg16_limb_horner(int deg, int nw, const int32_t* s, long long W, int c,
     return dg16::launch_horner<8, 1>(s, W, c, out, consts, st);
   if (nw == 8 && deg == 2)
     return dg16::launch_horner<8, 2>(s, W, c, out, consts, st);
+  if (nw == 12 && deg == 1)
+    return dg16::launch_horner<12, 1>(s, W, c, out, consts, st);
+  if (nw == 12 && deg == 2)
+    return dg16::launch_horner<12, 2>(s, W, c, out, consts, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -228,6 +294,8 @@ int dg16_mont_chain(int nw, uint32_t* x, long long n, const uint32_t* consts,
                     void* stream) {
   if (nw == 8)
     return dg16::launch_mont_chain<8>(x, n, consts, (cudaStream_t)stream);
+  if (nw == 12)
+    return dg16::launch_mont_chain<12>(x, n, consts, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,7 +8,12 @@ from .prove import (  # noqa: F401
     public_prove_consts,
     reassemble_proof,
 )
-from .proving_key import PackedProvingKeyShare, pack_proving_key  # noqa: F401
+from .proving_key import (  # noqa: F401
+    PackedProvingKeyShare,
+    QueryScalars,
+    pack_proving_key,
+    pack_proving_key_from_scalars,
+)
 from .qap import QAP, CompiledR1CS, PackedQAPShare  # noqa: F401
 from .setup import setup  # noqa: F401
 from .verify import verify  # noqa: F401

@@ -48,10 +48,21 @@ class ProvingKey:
     l_query: torch.Tensor  # (num_witness, 3, 16)
     domain_size: int
     num_instance: int
-    # The JAX package keeps the setup's query discrete logs here for its
-    # scalar route of pack_proving_key; the port has no such route yet, so
-    # this stays None and the key packs in the exponent. Never saved: the
-    # values are trapdoors (anyone holding them can forge proofs).
+    # Dealer-side discrete logs of the query arrays (QueryScalars in
+    # proving_key.py), kept ONLY when this key was produced by an
+    # in-process setup(). They let pack_proving_key run in the field (NTT
+    # pack + windowed fixed-base) instead of in the exponent. Not
+    # persisted by save(): a loaded key (external CRS) has None and packs
+    # via the in-exponent ladder.
+    #
+    # SECURITY HAZARD: these are trapdoor-derived values (u_i(tau),
+    # v_i(tau), the l/h scalars). Anyone holding them can forge proofs —
+    # the CRS soundness assumption is exactly that they are destroyed.
+    # save() deliberately omits them (and to() leaves them behind), but
+    # ANY other serialization or transport of a live ProvingKey object
+    # (pickle, cross-process handoff, a debug dump) would leak them. Call
+    # strip() the moment the dealer no longer needs the fast pack route —
+    # one-shot flows should use pack_proving_key(..., strip=True).
     query_scalars: object | None = None
 
     @property
@@ -63,14 +74,15 @@ class ProvingKey:
         return self.a_query.device
 
     def strip(self) -> "ProvingKey":
-        """Destroy the trapdoor-derived query_scalars. After this the key
-        packs via the in-exponent point route, like a loaded external CRS.
-        Returns self for chaining."""
+        """Destroy the trapdoor-derived query_scalars (see the field's
+        hazard note). After this the key packs via the in-exponent point
+        route, like a loaded external CRS. Returns self for chaining."""
         self.query_scalars = None
         return self
 
     def to(self, device) -> "ProvingKey":
-        """A copy of this key with every query array on `device`."""
+        """A copy of this key with every query array on `device`; the
+        query scalars stay behind (the copy packs via the point route)."""
         moved = {k: getattr(self, k).to(device) for k in _QUERIES}
         return ProvingKey(
             vk=self.vk, domain_size=self.domain_size,

@@ -9,6 +9,8 @@ setup.py. Same seed, same toxic waste, same key, limb for limb.
     coefficients — on the device NTT.
   * Every query point comes from the windowed fixed-base multiply
     (ops/fixedbase.py) on the device.
+  * The key keeps the query discrete logs (query_scalars) for the scalar
+    route of pack_proving_key; save() drops them.
 """
 
 from __future__ import annotations
@@ -119,8 +121,17 @@ def setup(r1cs: R1CS, seed: int = 42, device=None) -> ProvingKey:
         delta_g2=C2.decode(g2_pts[nw + 2]),
         gamma_abc_g1=list(C1.decode(gamma_abc)),
     )
-    # query_scalars stays None: only the packed proving-key route
-    # (pack_proving_key) reads it, and that route is not ported yet.
+    # The dealer keeps the query discrete logs: pack_proving_key then
+    # shards the CRS in the field (device NTT pack + windowed fixed-base,
+    # proving_key.py) instead of in the exponent. Trapdoor-derived: see
+    # ProvingKey.query_scalars.
+    from .proving_key import QueryScalars
+
+    F = fr()
+    query_scalars = QueryScalars(
+        a=F.encode(u, dev), b=F.encode(v, dev), l=F.encode(l_query_s, dev),
+        h=h_scal,
+    )
     return ProvingKey(
         vk=vk,
         beta_g1=beta_g1,
@@ -132,4 +143,5 @@ def setup(r1cs: R1CS, seed: int = 42, device=None) -> ProvingKey:
         l_query=l_query,
         domain_size=m,
         num_instance=ni,
+        query_scalars=query_scalars,
     )

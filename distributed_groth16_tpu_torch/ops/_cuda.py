@@ -37,6 +37,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
     "limb_group": {
         "dg16_limb_add": [_I, _I, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _P],
+        "dg16_limb_add_resident": [_I, _I, _P, _LL, _LL, _P, _LL, _LL, _P,
+                                   _LL, _P, _P],
         "dg16_limb_double": [_I, _I, _P, _LL, _LL, _P, _LL, _P, _P],
         "dg16_limb_horner": [_I, _I, _P, _LL, _I, _P, _P, _P],
         "dg16_mont_chain": [_I, _P, _LL, _P, _P],
@@ -132,9 +134,21 @@ class Kernel:
         self.launches += 1
 
 
-# one counter per kernel instantiation: _g1 / _g2 are the BN254 groups
+# the 32-bit word counts of the base fields the group kernels are built
+# for: 8 (BN254), 12 (BLS12-377/381)
+GROUP_WORDS = (8, 12)
+
+
+def kernel_name(op: str, deg: int, nw: int) -> str:
+    """Counter name of a group kernel instantiation: limb_add_g1 is kernel
+    1 on BN254 G1 (8 words), limb_add_g2_w12 on a BLS12 G2 (12 words)."""
+    return f"limb_{op}_g{deg}" + ("" if nw == 8 else f"_w{nw}")
+
+
+# one counter per kernel instantiation
 KERNELS = {
-    f"limb_{op}_g{deg}": Kernel("limb_group", f"dg16_limb_{op}")
+    kernel_name(op, deg, nw): Kernel("limb_group", f"dg16_limb_{op}")
+    for nw in GROUP_WORDS
     for op in ("add", "double", "horner")
     for deg in (1, 2)
 }

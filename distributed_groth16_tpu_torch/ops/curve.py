@@ -1,12 +1,13 @@
-"""Branchless projective arithmetic for BN254 G1/G2 on row-major tensors —
-the counterpart of distributed_groth16_tpu/ops/curve.py.
+"""Branchless projective arithmetic for short-Weierstrass G1/G2 (a = 0) on
+row-major tensors — the counterpart of distributed_groth16_tpu/ops/curve.py.
 
 Points are homogeneous projective (X : Y : Z) int32 limb tensors — G1:
-(..., 3, 16), G2: (..., 3, 2, 16) — under the complete RCB16 formulas for
-a = 0 (algorithms 7 and 9); infinity is (0 : 1 : 0). Every coordinate is
-canonical, so any correct evaluation order gives the same limbs as the
-JAX package; independent products of a formula step run as one stacked
-field multiply.
+(..., 3, nl), G2: (..., 3, 2, nl); nl = 16 for BN254, 24 for the BLS12
+curves (ops/bls12_377.py, ops/bls12_381.py) — under the complete RCB16
+formulas for a = 0 (algorithms 7 and 9); infinity is (0 : 1 : 0). Every
+coordinate is canonical, so any correct evaluation order gives the same
+limbs as the JAX package; independent products of a formula step run as
+one stacked field multiply.
 """
 
 from __future__ import annotations
@@ -22,11 +23,12 @@ from .field import fq, fq2
 
 class CurvePoints:
     """Vectorized projective point ops over a coordinate field: a
-    PrimeField (G1, elem_shape (16,)) or Fq2Ops (G2, elem_shape (2, 16))."""
+    PrimeField (G1, elem_shape (nl,)) or Fq2Ops (G2, elem_shape (2, nl)).
+    scalar_order is the order r of the scalar group (None: BN254 Fr)."""
 
-    def __init__(self, field, b, elem_shape, glv=None):
+    def __init__(self, field, b, elem_shape, glv=None, scalar_order=None):
         self.F = field
-        self.r = R  # order of the scalar group (BN254 Fr)
+        self.r = scalar_order if scalar_order is not None else R
         self.elem_shape = elem_shape
         self.coord_axes = len(elem_shape)
         p = field.p if hasattr(field, "p") else field.fq.p
@@ -243,7 +245,7 @@ def g2() -> CurvePoints:
 
 
 def fixed_scalar_ladder_tensors(curve: CurvePoints, scalars):
-    """Ladder tensors for a flat list of FIXED Fr scalars: (bits, signs,
+    """Ladder tensors for a flat list of FIXED scalars: (bits, signs,
     nbits), host (CPU) tensors.
 
     The shared precomputation of the fixed-scalar point transforms
@@ -251,7 +253,9 @@ def fixed_scalar_ladder_tensors(curve: CurvePoints, scalars):
     scalar splits into two signed ~129-bit halves applied to {P, phi(P)}:
     bits (2, S, nbits) int32, signs (2, S) bool, part 0 = k1 on P, part
     1 = k2 on phi(P). Without GLV: bits (1, S, nbits=256), signs None.
-    Scalars are reduced mod curve.r (not through encode_scalars_std).
+    Scalars are reduced mod curve.r, the curve's own group order (not
+    through encode_scalars_std, which reduces mod BN254 Fr: r381 is
+    larger).
     """
 
     def raw_limbs(vals):

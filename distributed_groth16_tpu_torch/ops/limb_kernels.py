@@ -1,19 +1,20 @@
-"""Limb-major BN254 field and group arithmetic, the tree MSM, and kernels
-1-3 — the counterpart of distributed_groth16_tpu/ops/limb_kernels.py.
+"""Limb-major field and group arithmetic, the tree MSM, and kernels 1-3 —
+the counterpart of distributed_groth16_tpu/ops/limb_kernels.py.
 
 Field elements live limb-major: int32 tensors (nl, n), limb rows first,
 batch along the columns, Montgomery form, REDUNDANT residues in [0, 2p):
-`mul` has no final subtraction (inputs < 2p give < 2p since 4p < 2^256),
+`mul` has no final subtraction (inputs < 2p give < 2p since 4p < 2^(16nl)),
 add/sub do one conditional -2p, and values are canonicalised only at the
-boundary back to the row-major world (`to_rowmajor`).
+boundary back to the row-major world (`to_rowmajor`). nl = 16 for BN254
+(8 32-bit words), 24 for BLS12-377/381 (12 words).
 
-Points are (3*CR, n) tensors, rows X, Y, Z (CR = 16 for G1 over Fq, 32 for
-G2 over Fq2). `LimbGroup.add`, `double` and `horner` are the wrappers of
-the hand-written CUDA kernels in csrc/limb_group.cu (the replacements of
-the Pallas kernels _pallas_add, _pallas_double and _horner): a CUDA tensor
-launches the kernel, a CPU tensor runs the plain PyTorch version below,
-which performs the same field operations in the same order, so both give
-identical limbs.
+Points are (3*CR, n) tensors, rows X, Y, Z (CR = nl for G1 over Fq, 2*nl
+for G2 over Fq2). `LimbGroup.add`, `double` and `horner` are the wrappers
+of the hand-written CUDA kernels in csrc/limb_group.cu (the replacements
+of the Pallas kernels _pallas_add, _pallas_double and _horner),
+instantiated at 8 and 12 words: a CUDA tensor launches the kernel, a CPU
+tensor runs the plain PyTorch version below, which performs the same
+field operations in the same order, so both give identical limbs.
 """
 
 from __future__ import annotations
@@ -203,6 +204,12 @@ class LimbGroup:
         self.ROWS = 3 * self.CR
         self.base_nl = field.p_col.shape[0]
         self.deg = self.CR // self.base_nl
+        # the kernels' 32-bit word count and their launch counters
+        # (ops/_cuda.KERNELS): one instantiation per (words, degree)
+        self.nw = self.base_nl // 2
+        self.kernels = {op: _cuda.KERNELS[_cuda.kernel_name(op, self.deg,
+                                                            self.nw)]
+                        for op in ("add", "double", "horner")}
         b3 = field.b3_limbs(b)
         self._b3 = _Consts(b3=b3[:, 0])
         # csrc/limb_group.cu GroupConsts: p, 2p, 3b words, n0
@@ -333,8 +340,8 @@ class LimbGroup:
         n = a.shape[1]
         out = torch.empty((self.ROWS, n), dtype=torch.int32, device=p.device)
         if n:
-            _cuda.KERNELS[f"limb_add_g{self.deg}"](
-                self.deg, self.base_nl // 2,
+            self.kernels["add"](
+                self.deg, self.nw,
                 a.data_ptr(), a.stride(0), a.stride(1),
                 b.data_ptr(), b.stride(0), b.stride(1),
                 out.data_ptr(), n, self.kernel_consts.ctypes.data,
@@ -350,8 +357,8 @@ class LimbGroup:
         n = a.shape[1]
         out = torch.empty((self.ROWS, n), dtype=torch.int32, device=p.device)
         if n:
-            _cuda.KERNELS[f"limb_double_g{self.deg}"](
-                self.deg, self.base_nl // 2,
+            self.kernels["double"](
+                self.deg, self.nw,
                 a.data_ptr(), a.stride(0), a.stride(1),
                 out.data_ptr(), n, self.kernel_consts.ctypes.data,
                 _cuda.stream_ptr(out),
@@ -364,8 +371,9 @@ class LimbGroup:
         ).reshape(p.shape)
 
     # kernel 3 stages at most this many window sums in shared memory
-    # (csrc/limb_group.cu kHornerMaxW): W = 64 is c = 4 over 256 bits
-    HORNER_MAX_W = 64
+    # (csrc/limb_group.cu kHornerMaxW): W = 68 is c = 4 over the 17-limb
+    # standard form of an Fr381 share (272 bits, the top 17 windows zero)
+    HORNER_MAX_W = 68
 
     def horner(self, s, c: int):
         """Window sums s (ROWS, W), LSB window first -> one point column:
@@ -383,8 +391,8 @@ class LimbGroup:
             )
         s = s.contiguous()
         out = torch.empty((self.ROWS, 1), dtype=torch.int32, device=s.device)
-        _cuda.KERNELS[f"limb_horner_g{self.deg}"](
-            self.deg, self.base_nl // 2, s.data_ptr(), W, c,
+        self.kernels["horner"](
+            self.deg, self.nw, s.data_ptr(), W, c,
             out.data_ptr(), self.kernel_consts.ctypes.data,
             _cuda.stream_ptr(out),
         )
@@ -435,6 +443,32 @@ def lg2() -> LimbGroup:
     return LimbGroup(lfq2(), G2_B)
 
 
+# BLS12-377/381 limb groups: the same bodies and kernels at 24 base-field
+# limb rows (radix 2^384, 12-word kernel instantiations), keyed off the
+# constants derived in ops/bls12_377.py and ops/bls12_381.py.
+
+
+@functools.cache
+def lg1_377() -> LimbGroup:
+    from .bls12_377 import G1_B377, Q377, fq377
+
+    return LimbGroup(LimbField(Q377, fq377().nl), G1_B377)
+
+
+@functools.cache
+def lg1_381() -> LimbGroup:
+    from .bls12_381 import G1_B381, Q381, fq381
+
+    return LimbGroup(LimbField(Q381, fq381().nl), G1_B381)
+
+
+@functools.cache
+def lg2_381() -> LimbGroup:
+    from .bls12_381 import G2_B381, Q381, fq381
+
+    return LimbGroup(LimbFq2(LimbField(Q381, fq381().nl)), G2_B381)
+
+
 # ---------------------------------------------------------------------------
 # Tree MSM: sorted-digit buckets, pairwise sum tree + Fenwick prefix queries
 # ---------------------------------------------------------------------------
@@ -442,7 +476,9 @@ def lg2() -> LimbGroup:
 
 def _digits(scalars_std, c: int):
     """(n, nl) standard-form limbs -> (W, n) int64 c-bit digits, LSB window
-    first, W = nl*16/c. c must divide 16."""
+    first, W = nl*16/c. c must divide 16. Width-aware: a wider layout (the
+    17-limb standard form of an Fr381 share) just gives more, all-zero,
+    top windows."""
     assert LIMB_BITS % c == 0
     per = LIMB_BITS // c
     s = scalars_std.long()
@@ -455,9 +491,11 @@ def msm_tree(points_rm, scalars_std, c: int | None = None,
              window_group: int | None = None, group: LimbGroup = None):
     """sum_i scalars[i] * points[i] on the limb-major path.
 
-    points_rm: (n, 3, 16) G1 / (n, 3, 2, 16) G2 projective row-major
-    (Montgomery, canonical); scalars_std: (n, k) standard-form limbs.
-    Returns the (3, ...) row-major canonical projective sum.
+    points_rm: (n, 3, nl) G1 / (n, 3, 2, nl) G2 projective row-major
+    (Montgomery, canonical); `group` is their LimbGroup (None: BN254's,
+    from the rank); scalars_std: (n, k) standard-form limbs, k*16 at
+    least the scalar bits. Returns the (3, ...) row-major canonical
+    projective sum.
 
     Per window: points are ordered by digit (stable argsort), reduced by a
     pairwise sum tree (n-1 adds, every level one kernel-1 launch over all

@@ -22,11 +22,18 @@ from .pss import PackedSharingParams
 
 
 async def d_msm(curve: CurvePoints, bases, scalar_shares,
-                pp: PackedSharingParams, net: Net, sid: int = 0):
+                pp: PackedSharingParams, net: Net, sid: int = 0,
+                scalar_field=None):
     """bases: (c, 3) + elem packed-in-the-exponent CRS shares;
-    scalar_shares: (c, 16) Montgomery packed witness shares. Returns the
-    clear MSM result (3,) + elem on every party (the same tensor object)."""
-    local = msm(curve, bases, fr().from_mont(scalar_shares))
+    scalar_shares: (c, nl) Montgomery packed witness shares. Returns the
+    clear MSM result (3,) + elem on every party (the same tensor object).
+
+    scalar_field: the PrimeField the shares live in (None: BN254 Fr);
+    bls12_377.fr377() with pss377(l) is the reference's BLS12-377
+    configuration (dmsm_bench.rs:42-50). A wide standard form (17-limb
+    Fr381) passes to the local MSM as it is."""
+    F = scalar_field or fr()
+    local = msm(curve, bases, F.from_mont(scalar_shares))
 
     def king(points):
         stacked = torch.stack(points, dim=0)  # (n, 3) + elem

@@ -1,4 +1,5 @@
-"""Packed secret sharing (PSS) over BN254 Fr — the counterpart of
+"""Packed secret sharing (PSS) over BN254 Fr, or another scalar field for
+the group-element maps — the counterpart of
 distributed_groth16_tpu/parallel/pss.py (the zkSaaS scheme of the
 reference's secret-sharing/src/pss.rs:13-148).
 
@@ -16,11 +17,13 @@ unpack2: IFFT on `share`, FFT on `secret2`, keep the even indices of the
          first 2l entries
 
 Field-vector transforms run batched over leading axes through ops/ntt.py
-(tiny row-major NTTs, vectorized over the chunk axis). The group-element
-("in the exponent") maps are the same linear maps as precomputed o x k Fr
-matrices applied with one batched fixed-scalar double-and-add ladder,
-limb-major through ops/limb_kernels.ladder_apply (kernels 1 and 2 on a
-CUDA tensor) at every size.
+(tiny row-major NTTs, vectorized over the chunk axis), over BN254 Fr only.
+The group-element ("in the exponent") maps are the same linear maps as
+precomputed o x k matrices over the scalar field, applied with one
+batched fixed-scalar double-and-add ladder, limb-major through
+ops/limb_kernels.ladder_apply (kernels 1 and 2 on a CUDA tensor) at every
+size, on any curve with a limb group (BN254, BLS12-377 G1, BLS12-381
+G1/G2).
 """
 
 from __future__ import annotations
@@ -39,35 +42,59 @@ from ..ops.ntt import domain
 
 
 class PackedSharingParams:
-    """PSS parameters and transforms for packing factor l (n = 4l parties),
-    over BN254 Fr."""
+    """PSS parameters and transforms for packing factor l (n = 4l parties).
+
+    Over BN254 Fr by default. Another (modulus, generator), e.g.
+    BLS12-377's (ops/bls12_377.pss377), builds the host domains over that
+    field, and with them every pack/unpack matrix and in-exponent ladder;
+    the device field-share transforms stay BN254-only (their NTT tables
+    are built over ops/constants.R) and raise NotImplementedError."""
 
     # the JAX package switches "auto" to its point-domain NTT from this
     # many parties up (parallel/pointntt.py, not ported yet)
     _NTT_THRESHOLD = 64
 
-    def __init__(self, l: int):
+    def __init__(self, l: int, modulus: int = R,
+                 generator: int = FR_GENERATOR):
         assert l >= 1 and (l & (l - 1)) == 0, "packing factor must be a power of 2"
         self.l = l
         self.t = l - 1
         self.n = 4 * l
+        self.modulus = modulus
         assert self.n == 2 * (self.t + self.l + 1)
-        self.share = domain(self.n)
-        self.secret = domain(self.l + self.t + 1, offset=FR_GENERATOR)
-        self.secret2 = domain(2 * (self.l + self.t + 1), offset=FR_GENERATOR)
+        if modulus == R:
+            self.share = domain(self.n)
+            self.secret = domain(self.l + self.t + 1, offset=FR_GENERATOR)
+            self.secret2 = domain(
+                2 * (self.l + self.t + 1), offset=FR_GENERATOR
+            )
+        else:
+            self.share = self.secret = self.secret2 = None
         # host-side mirrors for matrix construction / ground truth
-        self.share_h = rm.Domain(self.n)
-        self.secret_h = rm.Domain(self.l + self.t + 1, offset=FR_GENERATOR)
-        self.secret2_h = rm.Domain(
-            2 * (self.l + self.t + 1), offset=FR_GENERATOR
-        )
+        self.share_h = rm.Domain(self.n, modulus=modulus, generator=generator)
+        self.secret_h = rm.Domain(self.l + self.t + 1, offset=generator,
+                                  modulus=modulus, generator=generator)
+        self.secret2_h = rm.Domain(2 * (self.l + self.t + 1),
+                                   offset=generator, modulus=modulus,
+                                   generator=generator)
+
+    def _device_domains(self):
+        if self.share is None:
+            raise NotImplementedError(
+                "device field-share transforms are BN254-Fr-only; this "
+                "PackedSharingParams was built over another scalar field "
+                "(pack its scalars with ops/scalar_pack.pack_scalars, e.g. "
+                "bls12_377.pack_scalars_377)"
+            )
+        return self.share, self.secret, self.secret2
 
     # -- field-vector transforms (batched over leading axes) ------------------
 
     def pack_from_public(self, secrets):
         """(..., l, 16) secrets -> (..., n, 16) shares."""
         assert secrets.shape[-2] == self.l
-        return self.share.fft(self.secret.ifft(secrets))
+        share, secret, _ = self._device_domains()
+        return share.fft(secret.ifft(secrets))
 
     def pack_from_public_rand(self, secrets, rng: np.random.Generator):
         """Packing with t+1 uniform-in-Fr random filler points (the hiding
@@ -76,6 +103,7 @@ class PackedSharingParams:
         little-endian, reduced mod r — so one seed gives the same shares
         in both packages."""
         assert secrets.shape[-2] == self.l
+        share, secret, _ = self._device_domains()
         batch = tuple(secrets.shape[:-2])
         count = int(np.prod(batch, dtype=np.int64)) * (self.t + 1)
         raw = rng.bytes(count * 40)
@@ -84,21 +112,23 @@ class PackedSharingParams:
             vals[i] = int.from_bytes(raw[40 * i : 40 * (i + 1)], "little") % R
         rand = fr().encode(vals.reshape(batch + (self.t + 1,)), secrets.device)
         full = torch.cat([secrets, rand], dim=-2)
-        return self.share.fft(self.secret.ifft(full))
+        return share.fft(secret.ifft(full))
 
     def unpack(self, shares):
         """(..., n, 16) degree-(t+l) shares -> (..., l, 16) secrets."""
         assert shares.shape[-2] == self.n
-        coeffs = self.share.ifft(shares)[..., : self.secret.size, :]
-        return self.secret.fft(coeffs)[..., : self.l, :]
+        share, secret, _ = self._device_domains()
+        coeffs = share.ifft(shares)[..., : secret.size, :]
+        return secret.fft(coeffs)[..., : self.l, :]
 
     def unpack2(self, shares):
         """(..., n, 16) degree-2(t+l) shares -> (..., l, 16) secrets."""
         assert shares.shape[-2] == self.n
-        evals = self.secret2.fft(self.share.ifft(shares))
+        share, _, secret2 = self._device_domains()
+        evals = secret2.fft(share.ifft(shares))
         return evals[..., : 2 * self.l : 2, :]
 
-    # -- linear maps as explicit Fr matrices (for group elements) ------------
+    # -- linear maps as explicit scalar-field matrices (group elements) -----
 
     @functools.cached_property
     def pack_matrix(self) -> list[list[int]]:
@@ -170,9 +200,11 @@ class PackedSharingParams:
         """out[..., o, :] = sum_i mat[o][i] * pts[..., i, :].
 
         pts: (..., k) + point shape. One nbits-step ladder through
-        ladder_apply: the doubling chain runs on the (..., K) base set
-        only; the sign-adjusted conditional adds run batched over
-        (..., o, K); then a sum over K."""
+        ladder_apply on the curve's limb group: the doubling chain runs on
+        the (..., K) base set only; the sign-adjusted conditional adds run
+        batched over (..., o, K); then a sum over K. K = 2k with GLV
+        (BN254 G1), K = k and the full 256-bit ladder without (G2, the
+        BLS12 curves)."""
         from ..ops.limb_kernels import ladder_apply
 
         bits, signs, nbits = self._ladder_tensors(curve, which)
@@ -209,11 +241,13 @@ class PackedSharingParams:
 
     def _check_method(self, method: str) -> None:
         """Only the dense ladder is ported: raise where the JAX package
-        would take its point-domain NTT."""
+        would take its point-domain NTT (never for another scalar field,
+        where the dense ladder is its only in-exponent path)."""
         if method not in ("auto", "dense", "ntt"):
             raise ValueError(f"unknown method {method!r}")
         if method == "ntt" or (
             method == "auto" and self.n >= self._NTT_THRESHOLD
+            and self.modulus == R
         ):
             raise NotImplementedError(
                 "the in-exponent point-domain NTT (parallel/pointntt.py of "

@@ -13,10 +13,11 @@
 //
 // in.bin (int32 little-endian) starts with a header of 6 words:
 //   op 0 add, 1 double, 2 horner: deg, n (columns; horner: W), c (horner,
-//     else 0), cs (the input's column stride: it holds n * cs columns), 0;
-//     then the consts words (2 * 8 + 8 * deg + 1) and the operands as
-//     int32[3 * 16 * deg, n * cs] arrays (add: p, q; double: p; horner: s).
-//     out.bin: int32[3 * 16 * deg, n] (horner: n = 1).
+//     else 0), cs (the input's column stride: it holds n * cs columns), nw
+//     (the base field's 32-bit words: 8 or 12); then the consts words
+//     (2 * nw + nw * deg + 1) and the operands as int32[6 * nw * deg,
+//     n * cs] arrays (add: p, q; double: p; horner: s).
+//     out.bin: int32[6 * nw * deg, n] (horner: n = 1).
 //   op 3 ntt_small: 0, S, L, cpb, 0; then the Fr consts (17 words), the
 //     twiddle table int32[16, log2 S, S / 2] and x int32[16, S, L].
 //     out.bin: int32[16, S, L].
@@ -69,11 +70,11 @@ static void on_threads(unsigned threads, F fn) {
   for (auto& t : ts) t.join();
 }
 
-template <int DEG>
+template <int NW, int DEG>
 static void run_group(int op, long long n, int c, long long cs,
                       const uint32_t* consts, const int32_t* data,
                       int32_t* out) {
-  constexpr int NW = 8, ROWS = 3 * 16 * DEG;
+  constexpr int ROWS = 6 * NW * DEG;
   const auto g = dg16::unpack<NW, DEG>(consts);
   std::barrier<> warp(32);
   host_warp = &warp;
@@ -151,17 +152,17 @@ int main(int argc, char** argv) {
     out.resize(x.size());
     run_ntt(S, L, cpb, consts.data(), tw.data(), x.data(), out.data());
   } else {
-    const int deg = hdr[1], c = hdr[3];
+    const int deg = hdr[1], c = hdr[3], nw = hdr[5];
     const long long n = hdr[2], cs = hdr[4];
-    const int rows = 48 * deg;
-    std::vector<uint32_t> consts(17 + 8 * deg);
+    if ((nw != 8 && nw != 12) || (deg != 1 && deg != 2)) return 2;
+    const int rows = 6 * nw * deg;
+    std::vector<uint32_t> consts(2 * nw + nw * deg + 1);
     std::vector<int32_t> data(rows * (op == 0 ? 2 * n : n * cs));
     if (!read(f, consts) || !read(f, data)) return 2;
     out.resize(rows * (op == 2 ? 1 : n));
-    if (deg == 1)
-      run_group<1>(op, n, c, cs, consts.data(), data.data(), out.data());
-    else
-      run_group<2>(op, n, c, cs, consts.data(), data.data(), out.data());
+    auto* run = nw == 8 ? (deg == 1 ? run_group<8, 1> : run_group<8, 2>)
+                        : (deg == 1 ? run_group<12, 1> : run_group<12, 2>);
+    run(op, n, c, cs, consts.data(), data.data(), out.data());
   }
   std::fclose(f);
   FILE* o = std::fopen(argv[2], "wb");

@@ -12,8 +12,10 @@ Cases: kernel 1 at 24 columns; kernel 2 at ragged widths (a point per lane
 of a block's three warps: partial warps and blocks) and on a strided
 input; Horner at W = 2, 3, 5, 32, 64; kernel 4 at S = 2 ... 256 on ragged
 column counts (an odd and an even number of stages), both directions.
-Inputs carry redundant [0, 2p) values, and the points infinity and
-repeats.
+Kernels 1-3 run at 8 words (BN254 G1, G2) and at 12 words (a BLS12-377 or
+BLS12-381 G1 and BLS12-381 G2), the latter at fewer widths and Horner at
+W = 2, 34 and 68 (c = 4 over a 17-limb Fr381 standard form). Inputs carry
+redundant [0, 2p) values, and the points infinity and repeats.
 
 It checks the arithmetic, the step order and the lane and thread
 exchanges, not the PTX: only a run on the card (chip_smoke.py phase 3)
@@ -33,19 +35,37 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops import refmath
+from ..ops import bls12_377, bls12_381, refmath
+from ..ops import limb_kernels as lk
 from ..ops.constants import G1_GENERATOR, G2_GENERATOR, R
 from ..ops.curve import g1, g2
-from ..ops.limb_kernels import lg1, lg2
 from ..ops.ntt_limb import _ntt_consts, _small
 
 HERE = Path(__file__).resolve().parent
 OPS = {"add": 0, "double": 1, "horner": 2, "ntt_small": 3}
-# (kernel, group): one check each; kernel 4 runs over Fr
-CASES = [(k, gname) for k in ("add", "double", "horner")
-         for gname in ("g1", "g2")] + [("ntt_small", "fr")]
-DOUBLE_WIDTHS = (1, 2, 3, 4, 5, 9, 33, 41, 4097)
-HORNER_CASES = ((2, 4), (3, 8), (5, 4), (32, 8), (64, 4))
+# group -> (host ops, generator, row-major curve, limb group); BN254 G1/G2
+# run the 8-word kernels, the BLS12 groups the 12-word ones
+GROUPS = {
+    "g1": lambda: (refmath.G1, G1_GENERATOR, g1(), lk.lg1()),
+    "g2": lambda: (refmath.G2, G2_GENERATOR, g2(), lk.lg2()),
+    "g1_377": lambda: (bls12_377.G1_HOST, bls12_377.g1_generator_377(),
+                       bls12_377.g1_377(), lk.lg1_377()),
+    "g1_381": lambda: (bls12_381.G1_HOST, bls12_381.g1_generator_381(),
+                       bls12_381.g1_381(), lk.lg1_381()),
+    "g2_381": lambda: (bls12_381.G2_HOST, bls12_381.g2_generator_381(),
+                       bls12_381.g2_381(), lk.lg2_381()),
+}
+# (kernel, group): one check each; kernel 4 runs over Fr. At 12 words
+# each kernel runs on one G1 (<12, 1>) and on G2 (<12, 2>)
+CASES = (
+    [(k, gname) for k in ("add", "double", "horner") for gname in ("g1", "g2")]
+    + [("add", "g1_377"), ("add", "g2_381"), ("double", "g1_381"),
+       ("double", "g2_381"), ("horner", "g1_377"), ("horner", "g2_381")]
+    + [("ntt_small", "fr")]
+)
+DOUBLE_WIDTHS = {8: (1, 2, 3, 4, 5, 9, 33, 41, 4097), 12: (1, 5, 33, 41)}
+HORNER_CASES = {8: ((2, 4), (3, 8), (5, 4), (32, 8), (64, 4)),
+                12: ((2, 4), (34, 8), (68, 4))}
 NTT_SHAPES = ((2, 3), (4, 1), (32, 33), (64, 3), (128, 129), (256, 1),
               (256, 3))
 BASE_POINTS = 24
@@ -79,11 +99,7 @@ def build(out_dir: Path) -> Path:
 def points(gname: str, n: int, seed: int) -> torch.Tensor:
     """(ROWS, n) limb-major points with redundant [0, 2p) coordinates and
     the complete formulas' edge cases: infinity, and repeated points."""
-    host, gen, curve = (
-        (refmath.G1, G1_GENERATOR, g1()) if gname == "g1"
-        else (refmath.G2, G2_GENERATOR, g2())
-    )
-    g = lg1() if gname == "g1" else lg2()
+    host, gen, curve, g = GROUPS[gname]()
     rng = np.random.default_rng(seed)
     pts = [host.scalar_mul(gen, int(rng.integers(1, 2**62)))
            for _ in range(n - 3)] + [None, gen, gen]
@@ -112,29 +128,29 @@ def _i32(t: torch.Tensor) -> np.ndarray:
 
 def group_cases(kernel: str, gname: str):
     """(label, header, arrays, want) of each run of a group kernel."""
-    g = lg1() if gname == "g1" else lg2()
-    red = points(gname, BASE_POINTS, 1 if gname == "g1" else 2)
-    op, deg = OPS[kernel], g.deg
+    g = GROUPS[gname]()[3]
+    red = points(gname, BASE_POINTS, 1 if gname.startswith("g1") else 2)
+    op, deg, nw = OPS[kernel], g.deg, g.nw
     if kernel == "add":
         P, Q = red, torch.roll(red, 3, dims=1)
         Q[:, :2] = P[:, :2]  # P + P
         n = P.shape[1]
-        yield (f"n={n}", [op, deg, n, 0, 1, 0], (_consts(g), _i32(P),
-                                                 _i32(Q)), g.plain_add(P, Q))
+        yield (f"n={n}", [op, deg, n, 0, 1, nw],
+               (_consts(g), _i32(P), _i32(Q)), g.plain_add(P, Q))
     elif kernel == "double":
-        for n in DOUBLE_WIDTHS:
+        for n in DOUBLE_WIDTHS[nw]:
             P = red[:, torch.arange(n) % BASE_POINTS]
-            yield (f"n={n}", [op, deg, n, 0, 1, 0], (_consts(g), _i32(P)),
+            yield (f"n={n}", [op, deg, n, 0, 1, nw], (_consts(g), _i32(P)),
                    g.plain_double(P))
         # a strided view: every other column of a (ROWS, 2n) batch
         n = 33
         wide = red[:, torch.arange(2 * n) % BASE_POINTS]
-        yield (f"n={n} column stride 2", [op, deg, n, 0, 2, 0],
+        yield (f"n={n} column stride 2", [op, deg, n, 0, 2, nw],
                (_consts(g), _i32(wide)), g.plain_double(wide[:, ::2]))
     else:
-        for W, c in HORNER_CASES:
+        for W, c in HORNER_CASES[nw]:
             s = red[:, torch.arange(W) % BASE_POINTS]  # equal columns
-            yield (f"W={W} c={c}", [op, deg, W, c, 1, 0],
+            yield (f"W={W} c={c}", [op, deg, W, c, 1, nw],
                    (_consts(g), _i32(s)), g.plain_horner(s, c))
 
 

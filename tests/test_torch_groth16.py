@@ -70,7 +70,13 @@ def test_port_setup_equals_jax_setup(world):
             getattr(pk, k).numpy(), np.asarray(getattr(ref, k)).astype(np.int64)
         )
     assert vars(pk.vk) == vars(ref.vk)
-    assert pk.query_scalars is None
+    # the dealer's query scalars (the scalar route of the CRS pack), as the
+    # JAX package's setup keeps them
+    for k in ("a", "b", "l", "h"):
+        np.testing.assert_array_equal(
+            getattr(pk.query_scalars, k).numpy(),
+            np.asarray(getattr(ref.query_scalars, k)).astype(np.int64),
+        )
 
 
 def test_qap_matches_jax(world):

@@ -34,6 +34,9 @@ PORT_MODULES = [
     "distributed_groth16_tpu_torch.ops.ntt",
     "distributed_groth16_tpu_torch.ops.msm",
     "distributed_groth16_tpu_torch.ops.fixedbase",
+    "distributed_groth16_tpu_torch.ops.bls12_377",
+    "distributed_groth16_tpu_torch.ops.bls12_381",
+    "distributed_groth16_tpu_torch.ops.scalar_pack",
     "distributed_groth16_tpu_torch.frontend.r1cs",
     "distributed_groth16_tpu_torch.frontend.sha256",
     "distributed_groth16_tpu_torch.models.groth16",
@@ -129,6 +132,36 @@ def test_host_module_is_an_exact_copy(mod):
     sub = "ops" if mod in COPIES else "frontend"
     ref = ROOT / "distributed_groth16_tpu" / sub / f"{mod}.py"
     assert _code_of(PORT / sub / f"{mod}.py") == _code_of(ref)
+
+
+# the BLS12 modules: their host part (parameters derived from the seed,
+# the import-time self-checks, the host ground truth and the generators)
+# is copied; these device instances are the port's own
+BLS_DEVICE = {
+    "bls12_377": {"fq377", "fr377", "g1_377", "encode_scalars_377",
+                  "pss377", "pack_scalars_377"},
+    "bls12_381": {"fq381", "fr381", "fq2_381", "g1_381", "g2_381",
+                  "encode_scalars_381", "pss381", "pack_scalars_381"},
+}
+
+
+def _host_part(path: pathlib.Path, device: set) -> list[str]:
+    body = ast.parse(path.read_text()).body[1:]  # after the docstring
+    return [ast.dump(n) for n in body
+            if getattr(n, "name", None) not in device]
+
+
+@pytest.mark.parametrize("mod", sorted(BLS_DEVICE))
+def test_bls_host_part_is_an_exact_copy(mod):
+    ref = ROOT / "distributed_groth16_tpu" / "ops" / f"{mod}.py"
+    port = PORT / "ops" / f"{mod}.py"
+    assert _host_part(port, BLS_DEVICE[mod]) == _host_part(ref,
+                                                           BLS_DEVICE[mod])
+    names = {n.name for n in ast.parse(ref.read_text()).body
+             if isinstance(n, ast.FunctionDef)}
+    ported = {n.name for n in ast.parse(port.read_text()).body
+              if isinstance(n, ast.FunctionDef)}
+    assert BLS_DEVICE[mod] <= names and names == ported
 
 
 _CONSTANTS = [
@@ -246,7 +279,10 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("name", ["limb_add_g1", "limb_double_g2",
                                   "limb_horner_g1", "ntt_small",
                                   "limb_add_g2", "limb_double_g1",
-                                  "limb_horner_g2"])
+                                  "limb_horner_g2", "limb_add_g1_w12",
+                                  "limb_add_g2_w12", "limb_double_g1_w12",
+                                  "limb_double_g2_w12", "limb_horner_g1_w12",
+                                  "limb_horner_g2_w12"])
 def test_kernel_entries_exist_in_the_sources(name):
     from distributed_groth16_tpu_torch.ops import _cuda
 

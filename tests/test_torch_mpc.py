@@ -71,7 +71,8 @@ def _round(sim, prove, pp, crs, qs, a, ax, **kw):
 def jax_world(tmp_path_factory):
     r1cs, z = mult_chain_circuit(7, 13).finish()  # nc=13, ni=2 -> m=16
     path = str(tmp_path_factory.mktemp("key") / "pk.npz")
-    jg.setup(r1cs, seed=42).save(path)
+    dealer = jg.setup(r1cs, seed=42)  # keeps its query scalars
+    dealer.save(path)
     pk = jg.ProvingKey.load(path)  # no query scalars: the point route
     jp = PackedSharingParams(L)
     z_mont = jfr().encode(z)
@@ -84,7 +85,7 @@ def jax_world(tmp_path_factory):
                  jp, crs, qs, a, ax)
     return dict(r1cs=r1cs, z=z, path=path, pk=pk, qs=qs, crs=crs, a=a,
                 ax=ax, res=res, proof=jg.reassemble_proof(res[0], pk),
-                pubs=z[1:ni])
+                pubs=z[1:ni], dealer=dealer, jp=jp)
 
 
 def _tensors(value):
@@ -355,3 +356,64 @@ def test_strip_clears_query_scalars(jax_world):
     pk = port.ProvingKey.load(jax_world["path"], device="cpu")
     pk.query_scalars = object()
     assert pk.strip() is pk and pk.query_scalars is None
+
+
+# -- the scalar route of the CRS pack ---------------------------------------
+
+QUERIES = ("s", "u", "v", "w", "h")
+
+
+@pytest.fixture(scope="module")
+def scalar_world(jax_world):
+    """The port's own setup of the same circuit and seed (which keeps the
+    dealer's query scalars), packed by the scalar route."""
+    pk = port.setup(jax_world["r1cs"], seed=42, device="cpu")
+    assert isinstance(pk.query_scalars, port.QueryScalars)
+    timings = {}
+    crs = port.pack_proving_key(pk, pss(L), timings=timings)
+    return dict(pk=pk, crs=crs, timings=timings)
+
+
+def _affine_shares(crs, query):
+    curve = g2() if query == "v" else g1()
+    return [curve.decode(getattr(share, query)) for share in crs]
+
+
+@pytest.mark.parametrize("query", QUERIES)
+def test_scalar_route_shares_equal_point_route_shares(scalar_world,
+                                                      port_world, query):
+    """The port's form of the JAX package's
+    test_scalar_route_pack_matches_point_route: packing the dealer's
+    scalars in the field, then one fixed-base multiply per share point,
+    gives the in-exponent pack's share points."""
+    got, want = scalar_world["crs"], port_world["crs"]
+    for a, b in zip(got, want):
+        assert tuple(getattr(a, query).shape) == tuple(getattr(b, query).shape)
+    assert _affine_shares(got, query) == _affine_shares(want, query)
+    assert set(scalar_world["timings"]) == set(QUERIES)
+
+
+def test_scalar_route_shares_equal_the_jax_scalar_route(jax_world,
+                                                        scalar_world):
+    want = jg.pack_proving_key(jax_world["dealer"], jax_world["jp"])
+    for query in QUERIES:
+        jcurve = jg2() if query == "v" else jg1()
+        assert _affine_shares(scalar_world["crs"], query) == [
+            jcurve.decode(getattr(share, query)) for share in want
+        ], query
+
+
+def test_save_load_drop_query_scalars_and_strip_clears_them(scalar_world,
+                                                            tmp_path):
+    pk = scalar_world["pk"]
+    pk.save(str(tmp_path / "pk.npz"))
+    with np.load(tmp_path / "pk.npz") as d:
+        assert not any("scalar" in name for name in d.files)
+    loaded = port.ProvingKey.load(str(tmp_path / "pk.npz"), device="cpu")
+    assert loaded.query_scalars is None
+    assert pk.to("cpu").query_scalars is None
+    once = dataclasses.replace(pk)  # a one-shot dealer flow's key
+    shares = port.pack_proving_key(once, pss(L), strip=True)
+    assert once.query_scalars is None and pk.query_scalars is not None
+    assert _affine_shares(shares, "u") == _affine_shares(
+        scalar_world["crs"], "u")
