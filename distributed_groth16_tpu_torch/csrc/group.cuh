@@ -175,107 +175,6 @@ __device__ __forceinline__ void store_coord(int32_t* dst, long long rs,
   }
 }
 
-// -- kernel 1 with its operands read where they are used -----------------
-//
-// pt_add holds both operands in registers: 6 coordinates, 144 words for G2
-// at 12 words, before any temporary, and that instantiation spills. Here
-// each coordinate is read from global memory at each use instead (a G2
-// operand coordinate is read twice or three times, from L1 or L2), by
-// loads the compiler may neither merge nor hoist, and each output
-// coordinate is stored as soon as it is final. The values, and the order
-// of every field operation on them, are pt_add's.
-
-#ifdef DG16_HOST_CHECK
-__device__ __forceinline__ uint32_t ld_use(const int32_t* a) {
-  return (uint32_t)*a;
-}
-#else
-__device__ __forceinline__ uint32_t ld_use(const int32_t* a) {
-  uint32_t v;
-  asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(a));
-  return v;
-}
-#endif
-
-// coordinate `which` (W words) of the point at column col
-template <int W>
-__device__ __forceinline__ void ld_coord(uint32_t* v, const int32_t* src,
-                                         long long rs, long long col,
-                                         int which) {
-  const int32_t* e = src + (long long)(2 * W * which) * rs + col;
-#pragma unroll
-  for (int i = 0; i < W; ++i)
-    v[i] = ld_use(e + (2 * i) * rs) | (ld_use(e + (2 * i + 1) * rs) << 16);
-}
-
-template <int NW, int DEG>
-__device__ __forceinline__ void pt_add_streamed(
-    const int32_t* p, long long p_rs, long long p_col, const int32_t* q,
-    long long q_rs, long long q_col, int32_t* out, long long n, long long j,
-    const GroupConsts<NW, DEG>& g) {
-  using E = Ext<NW, DEG>;
-  constexpr int W = E::W;
-  const auto& c = g.f;
-  uint32_t t0[W], t1[W], t2[W], t3[W], t4[W], ty[W], a[W], b[W];
-  ld_coord<W>(a, p, p_rs, p_col, 0);
-  ld_coord<W>(b, q, q_rs, q_col, 0);
-  E::mul(t0, a, b, c);  // X1 X2
-  ld_coord<W>(a, p, p_rs, p_col, 1);
-  ld_coord<W>(b, q, q_rs, q_col, 1);
-  E::mul(t1, a, b, c);  // Y1 Y2
-  ld_coord<W>(a, p, p_rs, p_col, 2);
-  ld_coord<W>(b, q, q_rs, q_col, 2);
-  E::mul(t2, a, b, c);  // Z1 Z2
-  // t3 = (X1 + Y1)(X2 + Y2) - (t0 + t1); the product's output is scratch
-  ld_coord<W>(a, p, p_rs, p_col, 0);
-  ld_coord<W>(t3, p, p_rs, p_col, 1);
-  E::add(a, a, t3, c);
-  ld_coord<W>(b, q, q_rs, q_col, 0);
-  ld_coord<W>(t3, q, q_rs, q_col, 1);
-  E::add(b, b, t3, c);
-  E::mul(t3, a, b, c);
-  E::add(a, t0, t1, c);
-  E::sub(t3, t3, a, c);
-  // t4 = (Y1 + Z1)(Y2 + Z2) - (t1 + t2)
-  ld_coord<W>(a, p, p_rs, p_col, 1);
-  ld_coord<W>(t4, p, p_rs, p_col, 2);
-  E::add(a, a, t4, c);
-  ld_coord<W>(b, q, q_rs, q_col, 1);
-  ld_coord<W>(t4, q, q_rs, q_col, 2);
-  E::add(b, b, t4, c);
-  E::mul(t4, a, b, c);
-  E::add(a, t1, t2, c);
-  E::sub(t4, t4, a, c);
-  // ty = (X1 + Z1)(X2 + Z2) - (t0 + t2)
-  ld_coord<W>(a, p, p_rs, p_col, 0);
-  ld_coord<W>(ty, p, p_rs, p_col, 2);
-  E::add(a, a, ty, c);
-  ld_coord<W>(b, q, q_rs, q_col, 0);
-  ld_coord<W>(ty, q, q_rs, q_col, 2);
-  E::add(b, b, ty, c);
-  E::mul(ty, a, b, c);
-  E::add(a, t0, t2, c);
-  E::sub(ty, ty, a, c);
-  E::add(a, t0, t0, c);
-  E::add(t0, a, t0, c);     // t03 = 3 t0
-  E::mul(t2, t2, g.b3, c);  // t2b
-  E::mul(ty, ty, g.b3, c);  // yb
-  E::add(a, t1, t2, c);     // Z3' = t1 + t2b
-  E::sub(t1, t1, t2, c);    // t1m = t1 - t2b
-  E::mul(t2, t3, t1, c);
-  E::mul(b, t4, ty, c);
-  E::sub(b, t2, b, c);  // X3 = t3 t1m - t4 yb
-  store_coord<W>(out, n, j, 0, b);
-  E::mul(t2, ty, t0, c);
-  E::mul(b, t1, a, c);
-  E::add(b, t2, b, c);  // Y3 = yb t03 + t1m Z3'
-  store_coord<W>(out, n, j, 1, b);
-  E::mul(t2, a, t4, c);
-  E::mul(b, t0, t3, c);
-  E::add(b, t2, b, c);  // Z3 = Z3' t4 + t03 t3
-  store_coord<W>(out, n, j, 2, b);
-}
-
 // Role `role` (the warp) of the block's doubling for the point in column j
 // (input column col = j * column stride) on `lane`; out is contiguous
 // (ROWS, n); S holds kDoubleSlots * W * 32 words.

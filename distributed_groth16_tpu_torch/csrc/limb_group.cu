@@ -21,9 +21,13 @@
 // moved per point; G2 triples the products), so every value stays in
 // registers. Both groups call one out-of-line product: inlined, the 14 or
 // 42 product sites outgrow the instruction cache and run slower
-// (PERF.md). The launch bounds ask only for blocks of 128 threads: G1
-// then takes 118 registers, G2 235, with no spill; forcing more blocks
-// per SM spills and runs slower.
+// (PERF.md). The launch bounds ask only for blocks of 128 threads: at 8
+// words G1 then takes 118 registers, G2 235, with no spill; forcing more
+// blocks per SM spills and runs slower. At 12 words G1 takes 168, and G2
+// (two operands of 72 words each) 255 and spills about 1 KB a thread to
+// local memory; an add that read each operand coordinate from global
+// memory at its use instead ran 4x slower (ptxas put its arrays in local
+// memory; PERF.md), so that spill stays.
 //
 // Kernel 2 (the doubling of ladder_apply, on the MPC path only) runs at
 // 8-16 columns in every round's unpack and at 27,626-65,536 in the CRS
@@ -54,39 +58,11 @@ constexpr int kThreads = 128;
 // W = 68; at <12, 2> that is 68 * 72 words, 19.6 KB of shared memory
 constexpr int kHornerMaxW = 68;
 
-// kernel 1 streams its operands from memory (group.cuh pt_add_streamed)
-// where the two would not fit in registers beside the formula's
-// temporaries: G2 at 12 words
-template <int NW, int DEG>
-constexpr bool kStreamAdd = NW * DEG > 16;
-
 template <int NW, int DEG>
 __global__ void __launch_bounds__(kThreads)
     add_kernel(const int32_t* p, long long p_rs, long long p_cs,
                const int32_t* q, long long q_rs, long long q_cs, int32_t* out,
                long long n, const GroupConsts<NW, DEG> g) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  if constexpr (kStreamAdd<NW, DEG>) {
-    pt_add_streamed<NW, DEG>(p, p_rs, j * p_cs, q, q_rs, j * q_cs, out, n, j,
-                             g);
-  } else {
-    uint32_t P[3 * NW * DEG], Q[3 * NW * DEG];
-    load_point<NW, DEG>(P, p, p_rs, j * p_cs);
-    load_point<NW, DEG>(Q, q, q_rs, j * q_cs);
-    pt_add<NW, DEG>(P, P, Q, g);
-    store_point<NW, DEG>(out, n, j, P);
-  }
-}
-
-// The all-in-registers add at every size, for the comparison with the
-// streamed one (experiments/kernel1_w12)
-template <int NW, int DEG>
-__global__ void __launch_bounds__(kThreads)
-    add_resident_kernel(const int32_t* p, long long p_rs, long long p_cs,
-                        const int32_t* q, long long q_rs, long long q_cs,
-                        int32_t* out, long long n,
-                        const GroupConsts<NW, DEG> g) {
   long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   uint32_t P[3 * NW * DEG], Q[3 * NW * DEG];
@@ -187,16 +163,6 @@ int launch_add(const int32_t* p, long long p_rs, long long p_cs,
 }
 
 template <int NW, int DEG>
-int launch_add_resident(const int32_t* p, long long p_rs, long long p_cs,
-                        const int32_t* q, long long q_rs, long long q_cs,
-                        int32_t* out, long long n, const uint32_t* consts,
-                        cudaStream_t stream) {
-  add_resident_kernel<NW, DEG><<<blocks_for(n), kThreads, 0, stream>>>(
-      p, p_rs, p_cs, q, q_rs, q_cs, out, n, unpack<NW, DEG>(consts));
-  return (int)cudaGetLastError();
-}
-
-template <int NW, int DEG>
 int launch_double(const int32_t* p, long long p_rs, long long p_cs,
                   int32_t* out, long long n, const uint32_t* consts,
                   cudaStream_t stream) {
@@ -245,17 +211,6 @@ int dg16_limb_add(int deg, int nw, const int32_t* p, long long p_rs,
     return dg16::launch_add<12, 1>(p, p_rs, p_cs, q, q_rs, q_cs, out, n, consts, st);
   if (nw == 12 && deg == 2)
     return dg16::launch_add<12, 2>(p, p_rs, p_cs, q, q_rs, q_cs, out, n, consts, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-int dg16_limb_add_resident(int deg, int nw, const int32_t* p, long long p_rs,
-                           long long p_cs, const int32_t* q, long long q_rs,
-                           long long q_cs, int32_t* out, long long n,
-                           const uint32_t* consts, void* stream) {
-  auto st = (cudaStream_t)stream;
-  if (nw == 12 && deg == 2)
-    return dg16::launch_add_resident<12, 2>(p, p_rs, p_cs, q, q_rs, q_cs, out,
-                                            n, consts, st);
   return (int)cudaErrorInvalidValue;
 }
 
