@@ -34,14 +34,29 @@ result line):
      phase 4's prove_single proof byte for byte; then a round at
      r, s != 0 that must verify. Counters zeroed before, read after. Then
      a pack and a round under torch.profiler, for each kernel's device
-     time per MPC proof (kernels 1 and 2 split by launch width).
+     time per MPC proof (kernels 1 and 2 split by launch width);
+  7. BLS12 paths (the 12-word kernels, checked in phase 3 too), each run
+     once under torch.profiler with the counters zeroed before and read
+     after: (a) examples/dmsm_bench.py --curve bls12-377 at its top size,
+     a BLS12-377 G1 d_msm over 2^19 points (the generator, as there),
+     l = 2, n = 8: scalar pack, in-exponent base pack (kernels 1, 2),
+     eight local tree MSMs (kernels 1, 3) and the king's unpack (kernels
+     1, 2), equal to the host sum and to the port's local msm; (b)
+     BLS12-381 local msm at 2^20 distinct points, G1 and G2, each equal to
+     the host ground truth; (c) a BLS12-381 G2 d_msm at 2^16 points, l =
+     2; (d) the scalar route of the CRS pack of phase 4's key (which keeps
+     its dealer scalars), its shares equal to phase 6's point route as
+     affine points, and one 8-party round over them whose proof equals
+     phase 4's prove_single proof byte for byte.
 
-Output: phase lines, then a {"kernels": [...]} line (launches on the main
-path and, as launches_mpc, on the MPC path; ms, the device time of one
-launch at the row's shape; ms_per_proof and ms_per_mpc_proof, the summed
-device time in one warm proof and in one MPC proof (pack + round) from
-torch.profiler's kernel records; ptxas' registers and spills), the
-nvidia-smi name/power-limit line, and last {"ok": true, "device": {...}}.
+Output: phase lines, then a {"kernels": [...]} line (launches on the row's
+own path: phase 4 for the 8-word kernels, phase 7 for the 12-word ones;
+launches_mpc and launches_bls on the MPC and BLS paths; ms, the device
+time of one launch at the row's shape; ms_per_proof, ms_per_mpc_proof and
+ms_per_bls_path, the summed device time in one warm proof, one MPC proof
+(pack + round) and each BLS path, from torch.profiler's kernel records;
+ptxas' registers and spills), the nvidia-smi name/power-limit line, and
+last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -61,10 +76,14 @@ from contextlib import contextmanager
 IMAD_PER_SM_CLOCK = 64
 # H100 SXM HBM3 bandwidth (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-# 32-bit multiply-adds of one 8-word CIOS Montgomery product: 128
-# 32x32->64 products (a_j*b_i and m*p_j, two halves each) + 8 for m
-IMAD_PER_FQ_MUL = 2 * 128 + 8
 FQ_MULS = {"add": 14, "double": 9}  # per G1 point (RCB16); G2 triples
+
+
+def imad_per_fq_mul(nw: int) -> int:
+    """32-bit multiply-adds of one nw-word CIOS Montgomery product: 2 nw^2
+    32x32->64 products (a_j*b_i and m*p_j), two halves each, + nw for m:
+    264 at 8 words, 588 at 12."""
+    return 4 * nw * nw + nw
 
 SOURCES = {
     "limb_group": "distributed_groth16_tpu_torch/csrc/limb_group.cu",
@@ -141,9 +160,10 @@ class Bound:
     def __init__(self, sms: int, clock_mhz: float):
         self.imad_per_s = sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6
 
-    def __call__(self, nbytes: float, fq_muls: float) -> tuple[float, str]:
+    def __call__(self, nbytes: float, fq_muls: float,
+                 nw: int = 8) -> tuple[float, str]:
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = fq_muls * IMAD_PER_FQ_MUL / self.imad_per_s
+        t_ops = fq_muls * imad_per_fq_mul(nw) / self.imad_per_s
         if t_ops >= t_bytes:
             return t_ops * 1e3, "operations"
         return t_bytes * 1e3, "bytes"
@@ -158,12 +178,13 @@ def compare(name, kern, plain) -> int:
     return err
 
 
-# mangled-name fragment of each kernel row's function in ptxas -v output
-PTXAS_NAMES = {
-    f"limb_{op}_g{deg}": f"{op}_kernelILi8ELi{deg}E"
-    for op in ("add", "double", "horner") for deg in (1, 2)
-}
-PTXAS_NAMES["ntt_small"] = "ntt_small_kernel"
+def ptxas_name(key: str) -> str:
+    """Mangled-name fragment of a kernel row's function in ptxas -v output:
+    limb_add_g2_w12 -> add_kernelILi12ELi2E."""
+    if key == "ntt_small":
+        return "ntt_small_kernel"
+    m = re.fullmatch(r"limb_(add|double|horner)_g(\d)(?:_w(\d+))?", key)
+    return f"{m.group(1)}_kernelILi{m.group(3) or 8}ELi{m.group(2)}E"
 
 
 def ptxas_table(log: str) -> dict:
@@ -199,26 +220,26 @@ def warps_per_sm(registers: int, threads: int = 128) -> int:
 
 
 def product_latency_us(dev, g, rng) -> float:
-    """Latency of one inlined Montgomery product on the card, as a lane of
-    Horner's warp sees it: each lane of one warp squares its own element
-    in a dependent chain (dg16_mont_chain), 2n minus n products, so the
-    launch cancels."""
+    """Latency of one inlined Montgomery product over g's base field (8 or
+    12 words) on the card, as a lane of Horner's warp sees it: each lane
+    of one warp squares its own element in a dependent chain
+    (dg16_mont_chain), 2n minus n products, so the launch cancels."""
     import numpy as np
     import torch
 
     from distributed_groth16_tpu_torch.ops import _cuda
-    from distributed_groth16_tpu_torch.ops.constants import Q
 
     lib = _cuda.library("limb_group")
-    vals = [int.from_bytes(rng.bytes(40), "little") % (2 * Q)
+    p = g.F.p if hasattr(g.F, "p") else g.F.fq.p
+    vals = [int.from_bytes(rng.bytes(56), "little") % (2 * p)
             for _ in range(32)]
-    words = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals),
-                          dtype="<i4")
+    words = np.frombuffer(
+        b"".join(v.to_bytes(4 * g.nw, "little") for v in vals), dtype="<i4")
     x = torch.tensor(words.copy(), dtype=torch.int32, device=dev)
 
     def chain(n):
         def go():
-            rc = lib.dg16_mont_chain(8, x.data_ptr(), n,
+            rc = lib.dg16_mont_chain(g.nw, x.data_ptr(), n,
                                      g.kernel_consts.ctypes.data,
                                      _cuda.stream_ptr(x))
             if rc:
@@ -457,6 +478,160 @@ def phase_kernels(dev, bound, rng, ladder, n=32 * 16384,
     return entries
 
 
+def in_blocks(fn, *xs, step: int = 1 << 18):
+    """fn over column blocks of (ROWS, n) operands, concatenated: a plain
+    version at the widest path shapes without its int64 temporaries of all
+    n columns at once (the same function of the same inputs)."""
+    import torch
+
+    n = xs[0].shape[1]
+    return torch.cat([fn(*(x[:, i : i + step] for x in xs))
+                      for i in range(0, n, step)], dim=1)
+
+
+def bls_groups():
+    """name -> (limb group, row-major curve, host ops, generator) of the
+    BLS12 groups: the 12-word kernel instantiations."""
+    from distributed_groth16_tpu_torch.ops import bls12_377 as b7
+    from distributed_groth16_tpu_torch.ops import bls12_381 as b8
+    from distributed_groth16_tpu_torch.ops import limb_kernels as lk
+
+    return {
+        "g1_377": (lk.lg1_377(), b7.g1_377(), b7.G1_HOST,
+                   b7.g1_generator_377()),
+        "g1_381": (lk.lg1_381(), b8.g1_381(), b8.G1_HOST,
+                   b8.g1_generator_381()),
+        "g2_381": (lk.lg2_381(), b8.g2_381(), b8.G2_HOST,
+                   b8.g2_generator_381()),
+    }
+
+
+def small_log_points(g, C, host, gen, n, dev, seed, windows=4):
+    """n distinct points P_i = a_i G (a_i < 2^(8 windows), random) made on
+    the card from a host table of d 2^(8w) G through kernel 1: the
+    row-major canonical points (n, 3, ...) and the logs a_i (numpy
+    int64). Run before a path's counters are zeroed."""
+    import numpy as np
+    import torch
+
+    rows, bw = [], gen
+    for _ in range(windows):
+        row = [None, bw]
+        for _ in range(254):
+            row.append(host.add(row[-1], bw))
+        rows.append(row)
+        for _ in range(8):
+            bw = host.double(bw)
+    table = g.from_rowmajor(C.encode([p for row in rows for p in row], dev))
+    digits = np.random.default_rng(seed).integers(0, 256, size=(windows, n))
+    acc = g.infinity(n, dev)
+    for w in range(windows):
+        idx = torch.as_tensor(w * 256 + digits[w], device=dev)
+        acc = g.add(acc, table[:, idx])
+    logs = sum(digits[w].astype(np.int64) << (8 * w) for w in range(windows))
+    return g.to_rowmajor(acc), logs
+
+
+def phase_kernels_w12(dev, bound, rng, widths):
+    """Phase 3, 12 words: kernels 1-3 at <12, 1> and <12, 2> against their
+    plain versions on the card (limb for limb) at ragged widths and at the
+    widths phase 7's paths give them (`widths`: group -> kind -> columns;
+    kernel 1 also on msm_tree's strided pair halves and on a broadcast
+    operand, Horner at W in {2, 32, 34, 64, 68}), and timed at the widest
+    path width of each (device ms per launch)."""
+    import torch
+
+    entries = {}
+    for gname, (g, C, host, gen) in bls_groups().items():
+        RR, f = g.ROWS, 3 if g.deg == 2 else 1
+        suffix = "g2_w12" if g.deg == 2 else "g1_w12"
+        base_rm, _ = small_log_points(g, C, host, gen, 4096, dev, 3)
+        base = g.from_rowmajor(base_rm)
+        P, Q = point_columns(g, base, 4096, dev, 1)
+        red = g.add(P, Q)  # redundant [0, 2p) operands
+        wd = widths[gname]
+
+        def cols(n, seed):
+            gen_ = torch.Generator(device=dev).manual_seed(seed)
+            i = torch.randint(4096, (n,), device=dev, generator=gen_)
+            return red[:, i], base[:, i]
+
+        # ragged widths, strided pair halves, a broadcast operand
+        for n in DOUBLE_RAGGED:
+            x, y = cols(n, n)
+            x[:, 1::3] = torch.as_tensor(g.inf_col, device=dev)
+            compare(f"add_{gname} n={n}", g.add(x, y), g.plain_add(x, y))
+            compare(f"double_{gname} n={n}", g.double(x), g.plain_double(x))
+        pair = red[:, :4096].reshape(RR, 8, 256, 2)
+        compare(f"add_{gname} pair halves", g.add(pair[..., 0], pair[..., 1]),
+                g.plain_add(pair[..., 0], pair[..., 1]))
+        compare(f"add_{gname} broadcast q", g.add(red, base[:, 7:8]),
+                g.plain_add(red, base[:, 7:8]))
+        xs = red[:, : 2 * 4095 : 2]
+        compare(f"double_{gname} column stride 2", g.double(xs),
+                g.plain_double(xs))
+        # every path width; the row is timed at the widest
+        for kind in ("add", "double"):
+            key = f"limb_{kind}_{suffix}"
+            for n in sorted(wd[kind]):
+                x, y = cols(n, n + 1)
+                if kind == "add":
+                    kern, plain = (lambda: g.add(x, y),
+                                   lambda: in_blocks(g.plain_add, x, y))
+                else:
+                    kern, plain = (lambda: g.double(x),
+                                   lambda: in_blocks(g.plain_double, x))
+                err = compare(f"{kind}_{gname} n={n}", kern(), plain())
+                if n != max(wd[kind]) or key in entries:
+                    continue
+                nbytes = (3 if kind == "add" else 2) * RR * n * 4
+                b_ms, b_by = bound(nbytes, FQ_MULS[kind] * f * n, g.nw)
+                entries[key] = dict(
+                    shape=[RR, n], ms=device_ms(kern, 5),
+                    call_ms=cuda_ms(kern, 5), plain_ms=cuda_ms(plain, 1),
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err, kind=kind,
+                    source=SOURCES["limb_group"], group=gname,
+                )
+        # Horner: window sums with infinity, equal columns, a final P + P
+        inf = torch.as_tensor(g.inf_col, device=dev)
+        cases = []
+        for W, c in ((2, 4), (32, 8), (34, 8), (64, 4), (68, 4)):
+            hs = red[:, 100 : 100 + W].clone()
+            if W > 2:
+                hs[:, W - 1] = inf[:, 0]
+                hs[:, 2] = hs[:, 3]
+            col = hs[:, 1:2]
+            for _ in range(c):
+                col = g.plain_double(col)
+            hs[:, 0:1] = col
+            err = compare(f"horner_{gname} W={W} c={c}", g.horner(hs, c),
+                          g.plain_horner(hs, c))
+            cases.append(dict(W=W, c=c, ms=device_ms(
+                lambda: g.horner(hs, c), 3), max_abs_err=err))
+            if (W, c) == wd["horner"] and f"limb_horner_{suffix}" not in \
+                    entries:
+                muls = (W - 1) * (c * FQ_MULS["double"] + FQ_MULS["add"]) * f
+                b_ms, b_by = bound(RR * (W + 1) * 4, muls, g.nw)
+                entries[f"limb_horner_{suffix}"] = dict(
+                    shape=[RR, W], ms=cases[-1]["ms"],
+                    call_ms=cuda_ms(lambda: g.horner(hs, c), 3),
+                    plain_ms=cuda_ms(lambda: g.plain_horner(hs, c), 1),
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=0,
+                    kind="horner", source=SOURCES["limb_group"],
+                    chain_depth=(W - 1) * (3 * c + 3), group=gname,
+                )
+        entries[f"limb_horner_{suffix}"].setdefault("cases", []).extend(
+            dict(cs, group=gname) for cs in cases)
+        entries[f"limb_double_{suffix}"]["chain_depth"] = 3 * f
+        log(f"phase kernels {gname} (12 words): ok")
+    lat = product_latency_us(dev, bls_groups()["g1_381"][0], rng)
+    for e in entries.values():
+        if "chain_depth" in e:
+            e["product_latency_us"] = lat
+            e["chain_bound_ms"] = e["chain_depth"] * lat * 1e-3
+    return entries
+
+
 def sync(dev) -> None:
     import torch
 
@@ -516,11 +691,14 @@ WIDTH_ARG = {"limb_add": 9, "limb_double": 6}
 
 
 @contextmanager
-def kernel_trace():
+def kernel_trace(host_ops: bool = True):
     """torch.profiler (CUPTI) over the block. Yields a dict that is filled
     on exit with each kernel's summed device time (per_kernel, ms), kernels
     1 and 2 split by launch width (by_columns: {row: {columns: [launches,
-    ms]}}), and busy_ms, the union of every device activity's interval."""
+    ms]}}), and busy_ms, the union of every device activity's interval.
+    host_ops=False records the device alone, not every host-side torch op:
+    after a path of hundreds of thousands of small ops, collecting those
+    records takes minutes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -533,14 +711,15 @@ def kernel_trace():
     def recorded(self, *args):
         call(self, *args)
         name = names[id(self)]
-        arg = WIDTH_ARG.get(name[:-3])
+        arg = WIDTH_ARG.get(name.split("_g")[0])
         order.append((name, None if arg is None else args[arg]))
 
     res = {"per_kernel": {}, "by_columns": {}, "busy_ms": None}
     _cuda.Kernel.__call__ = recorded
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
+                                      else [])
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             yield res
     finally:
         _cuda.Kernel.__call__ = call
@@ -708,6 +887,7 @@ def phase_mpc(dev, ctx, l=2):
     t0 = time.perf_counter()
     crs = pack_proving_key(pk, pp, timings=pack)
     split["pack"] = (time.perf_counter() - t0) * 1e3
+    ctx["point_crs"] = crs  # phase 7 holds the scalar route against it
     t0 = time.perf_counter()
     qap_shares = comp.qap(z_mont).pss(pp)
     a_sh = pack_from_witness(pp, z_mont[1:])
@@ -827,6 +1007,210 @@ def phase_mpc(dev, ctx, l=2):
     return launches, per_mpc_ms
 
 
+# phase 7's sizes (log2 of the points): (a) examples/dmsm_bench.py --curve
+# bls12-377's top size; (b) BASELINE config 5's curve at the largest size
+# the tree MSM takes on one card without the JAX package's msm(chunk=...),
+# which is not ported; (c) a BLS12-381 G2 d_msm
+BLS_LOG_N = {"a": 19, "b": 20, "c": 16}
+
+
+def msm_level0(npts: int, rows: int, W: int) -> int:
+    """Columns of the first add level of msm_tree over npts points: a
+    window group of W windows (all of them up to 2^17 points, else
+    384 // rows) times half the padded points."""
+    npad = 1 << max(1, (npts - 1).bit_length())
+    group = W if npad <= 1 << 17 else max(1, 8 * 48 // rows)
+    return group * npad // 2
+
+
+def w12_widths(l: int = 2) -> dict:
+    """Columns of kernels 1 and 2, and Horner's (W, c), on phase 7's paths
+    for n = 4l parties: a d_msm's base pack adds over B*o*K = N*n columns
+    and doubles over B*K = N (no GLV: K = l); the king's unpack adds over
+    l*n and doubles over n; each local MSM adds first over msm_level0."""
+    n = 4 * l
+    a, b, c = (1 << BLS_LOG_N[k] for k in "abc")
+    return {
+        "g1_377": {"add": {a * n, msm_level0(a // l, 72, 32), l * n},
+                   "double": {a, n}, "horner": (32, 8)},
+        "g1_381": {"add": {msm_level0(b, 72, 32)}, "double": set(),
+                   "horner": (32, 8)},
+        "g2_381": {"add": {msm_level0(b, 144, 32), c * n,
+                           msm_level0(c // l, 144, 34), l * n},
+                   "double": {c, n}, "horner": (34, 8)},
+    }
+
+
+# the kernels each phase 7 path must launch
+BLS_PATH_KERNELS = {
+    "a": ("limb_add_g1_w12", "limb_double_g1_w12", "limb_horner_g1_w12"),
+    "a_local": ("limb_add_g1_w12", "limb_horner_g1_w12"),
+    "b_g1": ("limb_add_g1_w12", "limb_horner_g1_w12"),
+    "b_g2": ("limb_add_g2_w12", "limb_horner_g2_w12"),
+    "c": ("limb_add_g2_w12", "limb_double_g2_w12", "limb_horner_g2_w12"),
+    "d": ("limb_add_g1", "limb_add_g2", "limb_double_g1", "limb_double_g2",
+          "limb_horner_g1", "limb_horner_g2"),
+}
+
+
+def random_scalars(rng, n: int, r: int) -> list[int]:
+    raw = rng.bytes(40 * n)
+    return [int.from_bytes(raw[40 * i : 40 * (i + 1)], "little") % r
+            for i in range(n)]
+
+
+def phase_bls(dev, ctx, l=2):
+    """Phase 7: the BLS12 paths (a)-(c) and the scalar route of the CRS
+    pack (d); see the module docstring. Each path runs once under
+    torch.profiler, its counters zeroed just before and read just after.
+    Returns {path: {launches, device_ms, ...}}."""
+    import numpy as np
+    import torch
+
+    from distributed_groth16_tpu_torch.models.groth16 import (
+        distributed_prove_party, pack_from_witness, pack_proving_key,
+        reassemble_proof, verify,
+    )
+    from distributed_groth16_tpu_torch.ops import _cuda
+    from distributed_groth16_tpu_torch.ops import bls12_377 as b7
+    from distributed_groth16_tpu_torch.ops import bls12_381 as b8
+    from distributed_groth16_tpu_torch.ops.curve import g1, g2
+    from distributed_groth16_tpu_torch.ops.msm import msm
+    from distributed_groth16_tpu_torch.parallel.dmsm import d_msm
+    from distributed_groth16_tpu_torch.parallel.net import (
+        simulate_network_round,
+    )
+    from distributed_groth16_tpu_torch.parallel.pss import pss
+
+    rng = np.random.default_rng(7)
+    groups = bls_groups()
+    paths = {}
+
+    @contextmanager
+    def path(name):
+        for k in _cuda.KERNELS.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = {}
+        with kernel_trace(host_ops=False) as tr:
+            t0 = time.perf_counter()
+            yield rec
+            sync(dev)
+            t1 = time.perf_counter()
+            rec["wall_ms"] = (t1 - t0) * 1e3
+        rec["trace_s"] = time.perf_counter() - t1
+        launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        missing = [k for k in BLS_PATH_KERNELS[name] if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"path {name} never launched {missing}")
+        if not tr["per_kernel"]:
+            raise AssertionError("torch.profiler recorded no kernel")
+        rec.update(launches={k: v for k, v in launches.items() if v},
+                   device_ms=tr["per_kernel"], by_columns=tr["by_columns"],
+                   device_busy_ms=tr["busy_ms"],
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+        paths[name] = rec
+        log(f"bls path {name}: " + json.dumps(rec))
+
+    def dmsm_round(C, pp, F, b_sh, s_sh):
+        async def party(net, d):
+            return await d_msm(C, d[0], d[1], pp, net, scalar_field=F)
+
+        return simulate_network_round(
+            pp.n, party, [(b_sh[i], s_sh[i]) for i in range(pp.n)])
+
+    def broadcast_dmsm(name, C, pp, F, host, gen, r, pack_scalars, logn):
+        """dmsm_bench's loop body: N copies of the generator, so the
+        result is (sum s_i) G."""
+        N = 1 << logn
+        scalars = random_scalars(rng, N, r)
+        want = host.scalar_mul(gen, sum(scalars) % r)
+        pts = C.encode([gen], dev).expand((N, 3) + C.elem_shape)
+        with path(name) as rec:
+            t0 = time.perf_counter()
+            s_sh = pack_scalars(pp, scalars, dev)
+            chunks = pts.reshape((N // l, l, 3) + C.elem_shape)
+            b_sh = pp.packexp_from_public(C, chunks).transpose(0, 1)
+            sync(dev)
+            rec["pack_ms"] = (time.perf_counter() - t0) * 1e3
+            outs = dmsm_round(C, pp, F, b_sh, s_sh)
+        if any(o is not outs[0] for o in outs) or C.decode(outs[0]) != want:
+            raise AssertionError(f"path {name}: d_msm differs from the host")
+        log(f"bls path {name}: d_msm over 2^{logn} points equals the host "
+            "sum")
+        return pts, scalars, want
+
+    # (a) BLS12-377 G1 d_msm, the reference's dmsm_bench configuration
+    pts, scalars, want = broadcast_dmsm(
+        "a", b7.g1_377(), b7.pss377(l), b7.fr377(), b7.G1_HOST,
+        b7.g1_generator_377(), b7.R377, b7.pack_scalars_377, BLS_LOG_N["a"])
+    sc = b7.encode_scalars_377(scalars, dev)
+    with path("a_local"):
+        local = msm(b7.g1_377(), pts, sc)
+    if b7.g1_377().decode(local) != want:
+        raise AssertionError("path a: local msm differs from the host sum")
+    del pts, scalars, sc, local
+
+    # (b) BLS12-381 local MSMs over 2^20 distinct points, G1 and G2
+    N = 1 << BLS_LOG_N["b"]
+    for name, gname in (("b_g1", "g1_381"), ("b_g2", "g2_381")):
+        g, C, host, gen = groups[gname]
+        pts, logs = small_log_points(g, C, host, gen, N, dev, 11)
+        scalars = random_scalars(rng, N, b8.R381)
+        want = host.scalar_mul(
+            gen, sum(s * int(a) for s, a in zip(scalars, logs)) % b8.R381)
+        sc = b8.encode_scalars_381(scalars, dev)
+        with path(name):
+            out = msm(C, pts, sc)
+        if C.decode(out) != want:
+            raise AssertionError(f"path {name}: msm differs from the host")
+        log(f"bls path {name}: msm over 2^{BLS_LOG_N['b']} points equals "
+            f"the host; peak device memory {paths[name]['peak_bytes']} bytes")
+        del pts, logs, scalars, sc
+
+    # (c) BLS12-381 G2 d_msm
+    broadcast_dmsm("c", b8.g2_381(), b8.pss381(l), b8.fr381(), b8.G2_HOST,
+                   b8.g2_generator_381(), b8.R381, b8.pack_scalars_381,
+                   BLS_LOG_N["c"])
+
+    # (d) the scalar route of the CRS pack, BN254, phase 4's key
+    pk, comp, z_mont = ctx["pk"], ctx["comp"], ctx["z_mont"]
+    if pk.query_scalars is None:
+        raise AssertionError("phase 4's setup kept no query scalars")
+    pp = pss(l)
+    ni = ctx["r1cs"].num_instance
+    with path("d") as rec:
+        pack = {}
+        crs = pack_proving_key(pk, pp, timings=pack)
+        rec["pack_ms_per_query"] = pack
+        qap_shares = comp.qap(z_mont).pss(pp)
+        a_sh = pack_from_witness(pp, z_mont[1:])
+        ax_sh = pack_from_witness(pp, z_mont[ni:])
+
+        async def party(net, d):
+            return await distributed_prove_party(pp, *d, net)
+
+        res = simulate_network_round(pp.n, party, [
+            (crs[i], qap_shares[i], a_sh[i], ax_sh[i]) for i in range(pp.n)])
+        proof = reassemble_proof(res[0], pk)
+    for q in ("s", "u", "v", "w", "h"):
+        curve = g2() if q == "v" else g1()
+        got = torch.stack([getattr(c, q) for c in crs])
+        want = torch.stack([getattr(c, q) for c in ctx["point_crs"]])
+        if got.shape != want.shape or not torch.equal(
+                curve.to_affine(got), curve.to_affine(want)):
+            raise AssertionError(f"scalar route: query {q} differs from the "
+                                 "point route")
+    if proof_bytes(proof) != proof_bytes(ctx["proof"]):
+        raise AssertionError("scalar-route MPC proof differs from "
+                             "prove_single's")
+    if not verify(pk.vk, proof, ctx["pubs"]):
+        raise AssertionError("scalar-route MPC proof does not verify")
+    log("bls path d: scalar-route shares equal the point route's as affine "
+        "points; the proof equals prove_single's byte for byte")
+    return paths
+
+
 def phase_byte_identity(dev, length=2046, log_m=11):
     """Phase 5: at m = 2^11 the card's proof equals the CPU's (the CPU
     runs every kernel's plain version) for one key and witness."""
@@ -896,38 +1280,55 @@ def main() -> int:
     circuit = sha256_abc()
     ladder = ladder_shapes(circuit[0], 1 << 15)
     entries = phase_kernels(dev, bound, rng, ladder)
+    t0 = time.perf_counter()
+    entries.update(phase_kernels_w12(dev, bound, rng, w12_widths()))
+    log(f"phase kernels 12 words: {time.perf_counter() - t0:.1f} s")
     launches, per_proof_ms, ctx = phase_main_path(dev, circuit)
     phase_byte_identity(dev)
     launches_mpc, per_mpc_ms = phase_mpc(dev, ctx)
+    t0 = time.perf_counter()
+    bls = phase_bls(dev, ctx)
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    launches_bls = {k: sum(p["launches"].get(k, 0) for p in bls.values())
+                    for k in _cuda.KERNELS}
 
     # every kernel launches on at least one path: kernel 2 (double) only on
-    # the MPC path's ladder, kernel 4 (ntt_small) only on the main path.
-    # Every row's own numbers are at the main path's shape (as in slice 1);
-    # kernels 1 and 2 carry theirs at ladder_apply's widest shape in
-    # at_ladder, kernel 2 at the king's unpack in at_unpack
+    # the MPC and BLS paths' ladders, kernel 4 (ntt_small) only on the main
+    # path, the 12-word kernels only on the BLS paths. The 8-word rows' own
+    # numbers are at the main path's shape (as in slice 1) and their
+    # launches the main path's; kernels 1 and 2 carry theirs at
+    # ladder_apply's widest shape in at_ladder, kernel 2 at the king's
+    # unpack in at_unpack. The 12-word rows' numbers are at the widest
+    # shape of a BLS path and their launches the BLS paths'.
     rows = []
     for key, e in entries.items():
         err = max(e[k]["max_abs_err"] if k else e["max_abs_err"]
                   for k in (None, "ladder", "unpack") if k is None or k in e)
+        w12 = key.endswith("_w12")
         row = dict(
             name=key, route="cuda", source=e["source"],
             replaces=REPLACES[e["kind"]], shape=e["shape"],
-            launches=launches[key], launches_mpc=launches_mpc[key],
+            launches=launches_bls[key] if w12 else launches[key],
+            launches_mpc=launches_mpc[key], launches_bls=launches_bls[key],
+            launches_by_bls_path={p: r["launches"].get(key, 0)
+                                  for p, r in bls.items()},
             max_abs_err=err, match=err == 0, ms=e["ms"], kernel_ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=None,
             call_ms=e["call_ms"], ms_per_proof=per_proof_ms[key],
             ms_per_mpc_proof=per_mpc_ms[key],
+            ms_per_bls_path={p: r["device_ms"].get(key, 0.0)
+                             for p, r in bls.items()},
         )
         for extra in ("cases", "chain_depth", "product_latency_us",
-                      "chain_bound_ms"):
+                      "chain_bound_ms", "group"):
             if extra in e:
                 row[extra] = e[extra]
         if "ladder" in e:
             row["at_ladder"] = e["ladder"]
         if "unpack" in e:
             row["at_unpack"] = e["unpack"]
-        info = [v for f, v in ptxas.items() if PTXAS_NAMES[key] in f]
+        info = [v for f, v in ptxas.items() if ptxas_name(key) in f]
         if info:  # empty when the libraries were built by an earlier run
             row["ptxas"] = dict(info[0])
             if "registers" in info[0] and key.startswith(("limb_add",
@@ -935,7 +1336,7 @@ def main() -> int:
                 row["ptxas"]["warps_per_sm"] = warps_per_sm(
                     info[0]["registers"],
                     96 if key.startswith("limb_double") else 128)
-        if row["launches"] + row["launches_mpc"] == 0:
+        if row["launches"] + row["launches_mpc"] + row["launches_bls"] == 0:
             raise AssertionError(f"no path launched {key}")
         rows.append(row)
     print(json.dumps({"kernels": rows}))

@@ -12,7 +12,10 @@ Every constant is DERIVED from the BLS seed at import and self-checked:
     G2 : y^2 = x^3 + 4(1 + u)  over Fq2 = Fq[u]/(u^2+1)
 
 The parameter derivation, the self-checks, the host ground truth and the
-smallest-x generators are an exact copy of the JAX package's module. The
+smallest-x G1 generator are an exact copy of the JAX package's module;
+the G2 generator follows the same convention but clears the cofactor
+without reducing it mod r, which the JAX package's does (see
+g2_generator_381), so that it lies in G2. The
 device instances below are the port's: base-field elements are int32
 tensors of 24 16-bit limbs (radix 2^384); Fr381 Montgomery elements take
 17 limbs (radix 2^272: the 255-bit r needs 4r below the radix), while
@@ -170,20 +173,40 @@ def g1_generator_381() -> tuple[int, int]:
         gx += 1
 
 
+def _mul_unreduced(ops, p, k: int):
+    """k p by double-and-add with k NOT reduced mod the group order
+    (ops.scalar_mul reduces k mod r first, which turns the G2 cofactor h2
+    into h2 mod r, and r itself into 0)."""
+    acc, base = None, p
+    while k:
+        if k & 1:
+            acc = ops.add(acc, base)
+        base = ops.double(base)
+        k >>= 1
+    return acc
+
+
 @functools.cache
 def g2_generator_381():
     """Deterministic G2 generator: smallest x = (k, 1) with a square RHS,
-    cofactor-cleared into the r-torsion."""
+    cofactor-cleared into the r-torsion.
+
+    Not a copy of the JAX package's function: there G2_HOST.scalar_mul
+    clears the cofactor, and it reduces h2 mod r (h2 is 508 bits), so that
+    point lies outside the r-torsion, and its check r pt = infinity holds
+    for any point (r mod r = 0). Here the same raw point is multiplied by
+    h2 itself, and r pt = infinity is checked without the reduction."""
     k = 0
     while True:
         x = (k, 1)
         rhs = _f2_add(_f2_mul(_f2_mul(x, x), x), G2_B381)
         y = _sqrt_fq2(rhs)
         if y is not None:
-            pt = G2_HOST.scalar_mul((x, y), G2_COFACTOR)
+            pt = _mul_unreduced(G2_HOST, (x, y), G2_COFACTOR)
             if pt is not None:
                 assert G2_HOST.is_on_curve(pt)
-                assert G2_HOST.scalar_mul(pt, R381) is None, "not r-torsion"
+                assert _mul_unreduced(G2_HOST, pt, R381) is None, (
+                    "not r-torsion")
                 return pt
         k += 1
 

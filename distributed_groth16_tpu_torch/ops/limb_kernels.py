@@ -204,12 +204,7 @@ class LimbGroup:
         self.ROWS = 3 * self.CR
         self.base_nl = field.p_col.shape[0]
         self.deg = self.CR // self.base_nl
-        # the kernels' 32-bit word count and their launch counters
-        # (ops/_cuda.KERNELS): one instantiation per (words, degree)
-        self.nw = self.base_nl // 2
-        self.kernels = {op: _cuda.KERNELS[_cuda.kernel_name(op, self.deg,
-                                                            self.nw)]
-                        for op in ("add", "double", "horner")}
+        self.nw = self.base_nl // 2  # the kernels' 32-bit word count
         b3 = field.b3_limbs(b)
         self._b3 = _Consts(b3=b3[:, 0])
         # csrc/limb_group.cu GroupConsts: p, 2p, 3b words, n0
@@ -323,6 +318,11 @@ class LimbGroup:
 
     # -- kernel wrappers ----------------------------------------------------
 
+    def _kernel(self, op: str) -> _cuda.Kernel:
+        """Kernel `op` instantiated at this group's word count and degree,
+        with its own launch counter (ops/_cuda.KERNELS)."""
+        return _cuda.KERNELS[_cuda.kernel_name(op, self.deg, self.nw)]
+
     def _cols(self, name, t):
         """(ROWS, ...) -> a (ROWS, N) view (copied only if not viewable)
         the kernel reads through its row and column strides."""
@@ -340,7 +340,7 @@ class LimbGroup:
         n = a.shape[1]
         out = torch.empty((self.ROWS, n), dtype=torch.int32, device=p.device)
         if n:
-            self.kernels["add"](
+            self._kernel("add")(
                 self.deg, self.nw,
                 a.data_ptr(), a.stride(0), a.stride(1),
                 b.data_ptr(), b.stride(0), b.stride(1),
@@ -357,7 +357,7 @@ class LimbGroup:
         n = a.shape[1]
         out = torch.empty((self.ROWS, n), dtype=torch.int32, device=p.device)
         if n:
-            self.kernels["double"](
+            self._kernel("double")(
                 self.deg, self.nw,
                 a.data_ptr(), a.stride(0), a.stride(1),
                 out.data_ptr(), n, self.kernel_consts.ctypes.data,
@@ -391,7 +391,7 @@ class LimbGroup:
             )
         s = s.contiguous()
         out = torch.empty((self.ROWS, 1), dtype=torch.int32, device=s.device)
-        self.kernels["horner"](
+        self._kernel("horner")(
             self.deg, self.nw, s.data_ptr(), W, c,
             out.data_ptr(), self.kernel_consts.ctypes.data,
             _cuda.stream_ptr(out),

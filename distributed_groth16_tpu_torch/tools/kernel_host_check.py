@@ -14,7 +14,7 @@ input; Horner at W = 2, 3, 5, 32, 64; kernel 4 at S = 2 ... 256 on ragged
 column counts (an odd and an even number of stages), both directions.
 Kernels 1-3 run at 8 words (BN254 G1, G2) and at 12 words (a BLS12-377 or
 BLS12-381 G1 and BLS12-381 G2), the latter at fewer widths and Horner at
-W = 2, 34 and 68 (c = 4 over a 17-limb Fr381 standard form). Inputs carry
+W = 2 and 68 (c = 4 over a 17-limb Fr381 standard form). Inputs carry
 redundant [0, 2p) values, and the points infinity and repeats.
 
 It checks the arithmetic, the step order and the lane and thread
@@ -65,7 +65,7 @@ CASES = (
 )
 DOUBLE_WIDTHS = {8: (1, 2, 3, 4, 5, 9, 33, 41, 4097), 12: (1, 5, 33, 41)}
 HORNER_CASES = {8: ((2, 4), (3, 8), (5, 4), (32, 8), (64, 4)),
-                12: ((2, 4), (34, 8), (68, 4))}
+                12: ((2, 4), (68, 4))}
 NTT_SHAPES = ((2, 3), (4, 1), (32, 33), (64, 3), (128, 129), (256, 1),
               (256, 3))
 BASE_POINTS = 24

@@ -145,23 +145,31 @@ BLS_DEVICE = {
 }
 
 
-def _host_part(path: pathlib.Path, device: set) -> list[str]:
+# and the port's own fix of a fault of the JAX package: its G2 generator
+# clears the cofactor mod r and so lies outside G2 (ROADMAP queue 3)
+BLS_FIXED = {"bls12_377": set(),
+             "bls12_381": {"g2_generator_381", "_mul_unreduced"}}
+
+
+def _host_part(path: pathlib.Path, skip: set) -> list[str]:
     body = ast.parse(path.read_text()).body[1:]  # after the docstring
-    return [ast.dump(n) for n in body
-            if getattr(n, "name", None) not in device]
+    return [ast.dump(n) for n in body if getattr(n, "name", None) not in skip]
+
+
+def _functions(path: pathlib.Path) -> set:
+    return {n.name for n in ast.parse(path.read_text()).body
+            if isinstance(n, ast.FunctionDef)}
 
 
 @pytest.mark.parametrize("mod", sorted(BLS_DEVICE))
 def test_bls_host_part_is_an_exact_copy(mod):
     ref = ROOT / "distributed_groth16_tpu" / "ops" / f"{mod}.py"
     port = PORT / "ops" / f"{mod}.py"
-    assert _host_part(port, BLS_DEVICE[mod]) == _host_part(ref,
-                                                           BLS_DEVICE[mod])
-    names = {n.name for n in ast.parse(ref.read_text()).body
-             if isinstance(n, ast.FunctionDef)}
-    ported = {n.name for n in ast.parse(port.read_text()).body
-              if isinstance(n, ast.FunctionDef)}
-    assert BLS_DEVICE[mod] <= names and names == ported
+    skip = BLS_DEVICE[mod] | BLS_FIXED[mod]
+    assert _host_part(port, skip) == _host_part(ref, skip)
+    names, ported = _functions(ref), _functions(port)
+    assert BLS_DEVICE[mod] <= names <= ported
+    assert ported - names <= BLS_FIXED[mod]
 
 
 _CONSTANTS = [

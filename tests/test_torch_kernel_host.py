@@ -4,8 +4,9 @@ g++ with the field core's inline PTX swapped for C++ (an emulated carry
 flag), warps and blocks run as host threads with their barriers, each
 kernel held limb for limb against its plain PyTorch version: one case per
 kernel and group (kernel 2 at ragged widths and on a strided view, kernel
-4 at S = 2 ... 256 on ragged column counts). Skips where no g++ 12 or
-newer is found."""
+4 at S = 2 ... 256 on ragged column counts), kernels 1-3 at 8 words (BN254)
+and at 12 (BLS12-377/381 G1, BLS12-381 G2; Horner up to W = 68). Skips
+where no g++ 12 or newer is found."""
 
 import tempfile
 from pathlib import Path

@@ -2,10 +2,14 @@
 distributed_groth16_tpu_torch) against the JAX package's XLA bodies — the
 same functions its Pallas kernels compile — limb for limb on redundant
 [0, 2p) inputs, plus kernels 1-3 against their plain versions on a card
-(skipped without one): kernel 1 on msm_tree's strided pair halves and on a
-broadcast column, kernel 2 at ragged widths, on a strided view and at the
-MPC ladder's widest doubling, Horner at W in {2, 3, 32, 64} and c in
-{4, 8} on window sums with infinity, equal columns and a final P + P."""
+(skipped without one), at 8 words (BN254 G1, G2) and 12 words (BLS12-377
+G1, BLS12-381 G1 and G2): kernel 1 on msm_tree's strided pair halves and
+on a broadcast column, kernel 2 at ragged widths, on a strided view and at
+the widest ladder doubling of a card path, Horner at W in {2, 3, 32, 34,
+64, 68} and c in {4, 8} on window sums with infinity, equal columns and a
+final P + P."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -84,9 +88,22 @@ def test_limb_fq2_matches_jax(op):
 def _groups(group):
     if group == "g1":
         return jlk.lg1(), tlk.lg1(), jcurve.g1(), rm.G1, G1_GENERATOR
-    return jlk.lg2(), tlk.lg2(), jcurve.g2(), rm.G2, G2_GENERATOR
+    if group == "g2":
+        return jlk.lg2(), tlk.lg2(), jcurve.g2(), rm.G2, G2_GENERATOR
+    # the BLS12 groups: the 12-word kernel instantiations
+    from distributed_groth16_tpu.ops import bls12_377 as b7, bls12_381 as b8
+
+    return {
+        "g1_377": lambda: (jlk.lg1_377(), tlk.lg1_377(), b7.g1_377(),
+                           b7.G1_HOST, b7.g1_generator_377()),
+        "g1_381": lambda: (jlk.lg1_381(), tlk.lg1_381(), b8.g1_381(),
+                           b8.G1_HOST, b8.g1_generator_381()),
+        "g2_381": lambda: (jlk.lg2_381(), tlk.lg2_381(), b8.g2_381(),
+                           b8.G2_HOST, b8.g2_generator_381()),
+    }[group]()
 
 
+@functools.lru_cache(maxsize=None)
 def _lm_points(group, n, seed):
     """Limb-major points with redundant coordinates: sums of random
     multiples of the generator, plus infinity and a repeated point."""
@@ -202,13 +219,15 @@ def _window_sums(tg, red, W, c):
 
 KERNEL_CASES = (
     ["add", "add_pair_halves", "add_broadcast_q", "double", "horner",
-     "horner_W65_raises"]
-    + [f"horner_W{W}_c{c}" for W in (2, 3, 32, 64) for c in (4, 8)]
+     "horner_W69_raises"]
+    + [f"horner_W{W}_c{c}" for W in (2, 3, 32, 34, 64, 68) for c in (4, 8)]
 )
+# BN254 G1/G2 run the 8-word kernels, the BLS12 groups the 12-word ones
+CARD_GROUPS = ["g1", "g2", "g1_377", "g1_381", "g2_381"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("group", CARD_GROUPS)
 @pytest.mark.parametrize("op", KERNEL_CASES)
 def test_kernel_matches_plain_version(cuda, group, op):
     _, tg = _groups(group)[:2]
@@ -228,9 +247,9 @@ def test_kernel_matches_plain_version(cuda, group, op):
         got, want = tg.double(a), tg.plain_double(a)
     elif op == "horner":
         got, want = tg.horner(a[:, :32], 8), tg.plain_horner(a[:, :32], 8)
-    elif op == "horner_W65_raises":  # more window sums than it stages
-        with pytest.raises(ValueError, match="W <= 64"):
-            tg.horner(a[:, :65], 4)
+    elif op == "horner_W69_raises":  # more window sums than it stages
+        with pytest.raises(ValueError, match="W <= 68"):
+            tg.horner(a[:, :69], 4)
         return
     else:
         W, c = (int(v[1:]) for v in op.split("_")[1:])
@@ -243,13 +262,16 @@ def test_kernel_matches_plain_version(cuda, group, op):
 # kernel 2 gives a point a lane in each of a block's three warps, 32 points
 # a block: widths that leave warps and blocks partly idle
 DOUBLE_WIDTHS = [1, 2, 3, 4, 5, 9, 33, 4097]
-# ladder_apply's widest doubling when the CRS pack of SHA-256 (m = 2^15,
-# l = 2) runs on the card: h_query's B*K on G1, b_g2_query's on G2
-LADDER_DOUBLE = {"g1": 65536, "g2": 27626}
+# ladder_apply's widest doubling on the card's paths: the CRS pack of
+# SHA-256 (m = 2^15, l = 2), h_query's B*K on G1, b_g2_query's on G2; the
+# BLS12-377 base pack of 2^19 points (B*K = 2^18 * 2) and the BLS12-381 G2
+# pack of 2^16 (2^15 * 2), l = 2
+LADDER_DOUBLE = {"g1": 65536, "g2": 27626, "g1_377": 1 << 19,
+                 "g1_381": 1 << 19, "g2_381": 1 << 16}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("group", CARD_GROUPS)
 @pytest.mark.parametrize("width", DOUBLE_WIDTHS + ["strided", "ladder"])
 def test_double_kernel_matches_plain_version(cuda, group, width):
     """Kernel 2 on redundant coordinates with infinity in every third
