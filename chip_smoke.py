@@ -124,23 +124,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int, tries: int = 3) -> float:
+def device_ms(fn, reps: int, tries: int = 6) -> float:
     """Median device time (ms) of one launch of this repo's kernels over
     `reps` calls of fn after one warm-up call, from torch.profiler's kernel
     records (a wrapper call's wall time also holds its Python dispatch,
-    which exceeds the kernel at narrow widths). On the H100 an occasional
-    short trace holds no kernel record at all; such a trace is taken
-    again, up to `tries` traces."""
+    which exceeds the kernel at narrow widths). On the H100 a short trace
+    now and then holds no kernel record at all, up to several in a row;
+    such a trace is taken again with twice the calls, up to `tries`
+    traces."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for t in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(reps << t):
                 fn()
             torch.cuda.synchronize()
         d = sorted(e.time_range.end - e.time_range.start
