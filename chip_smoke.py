@@ -298,7 +298,7 @@ def point_columns(g, base, n, dev, seed):
 # B*K = 1 x n shares, doubled by GLV on G1, at n = 8 parties)
 UNPACK_COLUMNS = {"g1": 16, "g2": 8}
 # kernel 2 is also held at these widths (partial warps and blocks)
-DOUBLE_RAGGED = (1, 2, 3, 4, 5, 9, 33, 4097)
+DOUBLE_RAGGED = (1, 2, 3, 4, 5, 9, 31, 33, 4097)
 # kernel 4 is also held at these sizes and column counts, both directions
 NTT_SIZES, NTT_RAGGED_L = (2, 4, 32, 64, 128, 256), (1, 3, 33, 129)
 

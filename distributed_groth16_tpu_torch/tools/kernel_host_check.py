@@ -63,7 +63,7 @@ CASES = (
        ("double", "g2_381"), ("horner", "g1_377"), ("horner", "g2_381")]
     + [("ntt_small", "fr")]
 )
-DOUBLE_WIDTHS = {8: (1, 2, 3, 4, 5, 9, 33, 41, 4097), 12: (1, 5, 33, 41)}
+DOUBLE_WIDTHS = {8: (1, 2, 3, 4, 5, 9, 33, 41, 4097), 12: (1, 5, 31, 33, 41)}
 HORNER_CASES = {8: ((2, 4), (3, 8), (5, 4), (32, 8), (64, 4)),
                 12: ((2, 4), (68, 4))}
 NTT_SHAPES = ((2, 3), (4, 1), (32, 33), (64, 3), (128, 129), (256, 1),

@@ -261,7 +261,7 @@ def test_kernel_matches_plain_version(cuda, group, op):
 
 # kernel 2 gives a point a lane in each of a block's three warps, 32 points
 # a block: widths that leave warps and blocks partly idle
-DOUBLE_WIDTHS = [1, 2, 3, 4, 5, 9, 33, 4097]
+DOUBLE_WIDTHS = [1, 2, 3, 4, 5, 9, 31, 33, 4097]
 # ladder_apply's widest doubling on the card's paths: the CRS pack of
 # SHA-256 (m = 2^15, l = 2), h_query's B*K on G1, b_g2_query's on G2; the
 # BLS12-377 base pack of 2^19 points (B*K = 2^18 * 2) and the BLS12-381 G2
