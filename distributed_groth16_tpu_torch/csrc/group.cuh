@@ -175,6 +175,93 @@ __device__ __forceinline__ void store_coord(int32_t* dst, long long rs,
   }
 }
 
+// -- kernel 1 with its operands staged in shared memory -----------------
+//
+// pt_add holds both operands in registers: 6 coordinates, 144 words for G2
+// at 12 words, before any temporary, and that instantiation spills. Here
+// each thread stages its two operands in shared memory once and reads a
+// coordinate back at each use (a volatile read, so the compiler keeps no
+// copy of it in registers between uses), and stores each output
+// coordinate as soon as it is final. The values, and the order of every
+// field operation on them, are pt_add's. P and Q point at the thread's
+// slot file: word k of coordinate `which` at [(which * W + k) * stride].
+
+template <int W>
+__device__ __forceinline__ void sh_coord(uint32_t* v, const volatile uint32_t* S,
+                                         int stride, int which) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) v[k] = S[(which * W + k) * stride];
+}
+
+template <int NW, int DEG>
+__device__ __forceinline__ void pt_add_staged(const volatile uint32_t* P,
+                                              const volatile uint32_t* Q,
+                                              int stride, int32_t* out,
+                                              long long n, long long j,
+                                              const GroupConsts<NW, DEG>& g) {
+  using E = Ext<NW, DEG>;
+  constexpr int W = E::W;
+  const auto& c = g.f;
+  uint32_t t0[W], t1[W], t2[W], t3[W], t4[W], ty[W], a[W], b[W];
+  sh_coord<W>(a, P, stride, 0);
+  sh_coord<W>(b, Q, stride, 0);
+  E::mul(t0, a, b, c);  // X1 X2
+  sh_coord<W>(a, P, stride, 1);
+  sh_coord<W>(b, Q, stride, 1);
+  E::mul(t1, a, b, c);  // Y1 Y2
+  sh_coord<W>(a, P, stride, 2);
+  sh_coord<W>(b, Q, stride, 2);
+  E::mul(t2, a, b, c);  // Z1 Z2
+  // t3 = (X1 + Y1)(X2 + Y2) - (t0 + t1); the product's output is scratch
+  sh_coord<W>(a, P, stride, 0);
+  sh_coord<W>(t3, P, stride, 1);
+  E::add(a, a, t3, c);
+  sh_coord<W>(b, Q, stride, 0);
+  sh_coord<W>(t3, Q, stride, 1);
+  E::add(b, b, t3, c);
+  E::mul(t3, a, b, c);
+  E::add(a, t0, t1, c);
+  E::sub(t3, t3, a, c);
+  // t4 = (Y1 + Z1)(Y2 + Z2) - (t1 + t2)
+  sh_coord<W>(a, P, stride, 1);
+  sh_coord<W>(t4, P, stride, 2);
+  E::add(a, a, t4, c);
+  sh_coord<W>(b, Q, stride, 1);
+  sh_coord<W>(t4, Q, stride, 2);
+  E::add(b, b, t4, c);
+  E::mul(t4, a, b, c);
+  E::add(a, t1, t2, c);
+  E::sub(t4, t4, a, c);
+  // ty = (X1 + Z1)(X2 + Z2) - (t0 + t2)
+  sh_coord<W>(a, P, stride, 0);
+  sh_coord<W>(ty, P, stride, 2);
+  E::add(a, a, ty, c);
+  sh_coord<W>(b, Q, stride, 0);
+  sh_coord<W>(ty, Q, stride, 2);
+  E::add(b, b, ty, c);
+  E::mul(ty, a, b, c);
+  E::add(a, t0, t2, c);
+  E::sub(ty, ty, a, c);
+  E::add(a, t0, t0, c);
+  E::add(t0, a, t0, c);     // t03 = 3 t0
+  E::mul(t2, t2, g.b3, c);  // t2b
+  E::mul(ty, ty, g.b3, c);  // yb
+  E::add(a, t1, t2, c);     // Z3' = t1 + t2b
+  E::sub(t1, t1, t2, c);    // t1m = t1 - t2b
+  E::mul(t2, t3, t1, c);
+  E::mul(b, t4, ty, c);
+  E::sub(b, t2, b, c);  // X3 = t3 t1m - t4 yb
+  store_coord<W>(out, n, j, 0, b);
+  E::mul(t2, ty, t0, c);
+  E::mul(b, t1, a, c);
+  E::add(b, t2, b, c);  // Y3 = yb t03 + t1m Z3'
+  store_coord<W>(out, n, j, 1, b);
+  E::mul(t2, a, t4, c);
+  E::mul(b, t0, t3, c);
+  E::add(b, t2, b, c);  // Z3 = Z3' t4 + t03 t3
+  store_coord<W>(out, n, j, 2, b);
+}
+
 // Role `role` (the warp) of the block's doubling for the point in column j
 // (input column col = j * column stride) on `lane`; out is contiguous
 // (ROWS, n); S holds kDoubleSlots * W * 32 words.

@@ -72,6 +72,34 @@ __global__ void __launch_bounds__(kThreads)
   store_point<NW, DEG>(out, n, j, P);
 }
 
+// Kernel 1 with its operands staged in shared memory (group.cuh
+// pt_add_staged), blocks of 64 threads: 2 * 72 words a thread at <12, 2>
+// is 36.9 KB of static shared memory a block
+constexpr int kStagedThreads = 64;
+
+template <int NW, int DEG>
+__global__ void __launch_bounds__(kStagedThreads)
+    add_staged_kernel(const int32_t* p, long long p_rs, long long p_cs,
+                      const int32_t* q, long long q_rs, long long q_cs,
+                      int32_t* out, long long n,
+                      const GroupConsts<NW, DEG> g) {
+  constexpr int WORDS = 3 * NW * DEG;
+  __shared__ uint32_t S[2 * WORDS * kStagedThreads];
+  const long long j = (long long)blockIdx.x * kStagedThreads + threadIdx.x;
+  if (j >= n) return;
+  uint32_t* P = S + threadIdx.x;
+  uint32_t* Q = P + WORDS * kStagedThreads;
+  for (int i = 0; i < WORDS; ++i) {
+    P[i * kStagedThreads] =
+        (uint32_t)p[(2 * i) * p_rs + j * p_cs] |
+        ((uint32_t)p[(2 * i + 1) * p_rs + j * p_cs] << 16);
+    Q[i * kStagedThreads] =
+        (uint32_t)q[(2 * i) * q_rs + j * q_cs] |
+        ((uint32_t)q[(2 * i + 1) * q_rs + j * q_cs] << 16);
+  }
+  pt_add_staged<NW, DEG>(P, Q, kStagedThreads, out, n, j, g);
+}
+
 // a point per lane of three warps: 32 points a block
 constexpr int kDoubleThreads = 3 * 32;
 
@@ -163,6 +191,18 @@ int launch_add(const int32_t* p, long long p_rs, long long p_cs,
 }
 
 template <int NW, int DEG>
+int launch_add_staged(const int32_t* p, long long p_rs, long long p_cs,
+                      const int32_t* q, long long q_rs, long long q_cs,
+                      int32_t* out, long long n, const uint32_t* consts,
+                      cudaStream_t stream) {
+  add_staged_kernel<NW, DEG>
+      <<<(unsigned)((n + kStagedThreads - 1) / kStagedThreads),
+         kStagedThreads, 0, stream>>>(p, p_rs, p_cs, q, q_rs, q_cs, out, n,
+                                      unpack<NW, DEG>(consts));
+  return (int)cudaGetLastError();
+}
+
+template <int NW, int DEG>
 int launch_double(const int32_t* p, long long p_rs, long long p_cs,
                   int32_t* out, long long n, const uint32_t* consts,
                   cudaStream_t stream) {
@@ -211,6 +251,17 @@ int dg16_limb_add(int deg, int nw, const int32_t* p, long long p_rs,
     return dg16::launch_add<12, 1>(p, p_rs, p_cs, q, q_rs, q_cs, out, n, consts, st);
   if (nw == 12 && deg == 2)
     return dg16::launch_add<12, 2>(p, p_rs, p_cs, q, q_rs, q_cs, out, n, consts, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int dg16_limb_add_staged(int deg, int nw, const int32_t* p, long long p_rs,
+                         long long p_cs, const int32_t* q, long long q_rs,
+                         long long q_cs, int32_t* out, long long n,
+                         const uint32_t* consts, void* stream) {
+  auto st = (cudaStream_t)stream;
+  if (nw == 12 && deg == 2)
+    return dg16::launch_add_staged<12, 2>(p, p_rs, p_cs, q, q_rs, q_cs, out,
+                                          n, consts, st);
   return (int)cudaErrorInvalidValue;
 }
 
