@@ -126,31 +126,36 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_ms(fn, reps: int, tries: int = 6) -> float:
     """Median device time (ms) of one launch of this repo's kernels over
-    `reps` calls of fn after one warm-up call, from torch.profiler's kernel
-    records (a wrapper call's wall time also holds its Python dispatch,
-    which exceeds the kernel at narrow widths). On the H100 a short trace
-    now and then holds no kernel record at all, up to several in a row;
-    such a trace is taken again with twice the calls, up to `tries`
+    `reps` calls of fn, each launching one of them, after one warm-up call,
+    from torch.profiler's kernel records (a wrapper call's wall time also
+    holds its Python dispatch, which exceeds the kernel at narrow widths).
+    On the H100 a trace usually lacks one launch's record, now and then
+    holds none at all (up to several traces in a row), and once gave a
+    median of twice the kernel's time; a trace with no record, or whose
+    median exceeds 1.5 times the CUDA-event time of a call (which holds
+    the kernel), is taken again with twice the calls, up to `tries`
     traces."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
+    event = cuda_ms(fn, reps)  # includes the warm-up call
     for t in range(tries):
+        calls = reps << t
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps << t):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         d = sorted(e.time_range.end - e.time_range.start
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA and kernel_row(e.name))
-        if d:
+        if d and d[len(d) // 2] * 1e-3 <= 1.5 * event:
             return d[len(d) // 2] * 1e-3
-        log("device_ms: a trace held no kernel record; tracing again")
-    raise AssertionError(f"torch.profiler recorded no kernel in {tries} "
+        log(f"device_ms: a trace held {len(d)} kernel records of {calls} "
+            f"launches, median {d[len(d) // 2] * 1e-3 if d else None} ms, "
+            f"event time {event} ms a call; tracing again")
+    raise AssertionError(f"torch.profiler gave no usable trace in {tries} "
                          "traces")
 
 

@@ -23,11 +23,11 @@
 // 42 product sites outgrow the instruction cache and run slower
 // (PERF.md). The launch bounds ask only for blocks of 128 threads: at 8
 // words G1 then takes 118 registers, G2 235, with no spill; forcing more
-// blocks per SM spills and runs slower. At 12 words G1 takes 168, and G2
-// (two operands of 72 words each) 255 and spills about 1 KB a thread to
-// local memory; an add that read each operand coordinate from global
-// memory at its use instead ran 4x slower (ptxas put its arrays in local
-// memory; PERF.md), so that spill stays.
+// blocks per SM spills and runs slower; at 12 words G1 takes 168. G2 at
+// 12 words has two operands of 72 words each: held in registers they
+// spilled about 1 KB a thread, so each thread stages them in shared
+// memory and reads a coordinate back at each use (blocks of 64; 25-28%
+// faster at the BLS12 paths' widths, PERF.md).
 //
 // Kernel 2 (the doubling of ladder_apply, on the MPC path only) runs at
 // 8-16 columns in every round's unpack and at 27,626-65,536 in the CRS
@@ -58,46 +58,41 @@ constexpr int kThreads = 128;
 // W = 68; at <12, 2> that is 68 * 72 words, 19.6 KB of shared memory
 constexpr int kHornerMaxW = 68;
 
+// Kernel 1 stages its two operands in shared memory (group.cuh
+// pt_add_staged) where they would not fit in registers beside the
+// formula's temporaries: G2 at 12 words. Its blocks are then of 64
+// threads: 2 * 72 words a thread, 36.9 KB of static shared memory.
 template <int NW, int DEG>
-__global__ void __launch_bounds__(kThreads)
+constexpr bool kStagedAdd = NW * DEG > 16;
+template <int NW, int DEG>
+constexpr int kAddThreads = kStagedAdd<NW, DEG> ? 64 : kThreads;
+
+template <int NW, int DEG>
+__global__ void __launch_bounds__(kAddThreads<NW, DEG>)
     add_kernel(const int32_t* p, long long p_rs, long long p_cs,
                const int32_t* q, long long q_rs, long long q_cs, int32_t* out,
                long long n, const GroupConsts<NW, DEG> g) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int T = kAddThreads<NW, DEG>, WORDS = 3 * NW * DEG;
+  const long long j = (long long)blockIdx.x * T + threadIdx.x;
   if (j >= n) return;
-  uint32_t P[3 * NW * DEG], Q[3 * NW * DEG];
-  load_point<NW, DEG>(P, p, p_rs, j * p_cs);
-  load_point<NW, DEG>(Q, q, q_rs, j * q_cs);
-  pt_add<NW, DEG>(P, P, Q, g);
-  store_point<NW, DEG>(out, n, j, P);
-}
-
-// Kernel 1 with its operands staged in shared memory (group.cuh
-// pt_add_staged), blocks of 64 threads: 2 * 72 words a thread at <12, 2>
-// is 36.9 KB of static shared memory a block
-constexpr int kStagedThreads = 64;
-
-template <int NW, int DEG>
-__global__ void __launch_bounds__(kStagedThreads)
-    add_staged_kernel(const int32_t* p, long long p_rs, long long p_cs,
-                      const int32_t* q, long long q_rs, long long q_cs,
-                      int32_t* out, long long n,
-                      const GroupConsts<NW, DEG> g) {
-  constexpr int WORDS = 3 * NW * DEG;
-  __shared__ uint32_t S[2 * WORDS * kStagedThreads];
-  const long long j = (long long)blockIdx.x * kStagedThreads + threadIdx.x;
-  if (j >= n) return;
-  uint32_t* P = S + threadIdx.x;
-  uint32_t* Q = P + WORDS * kStagedThreads;
-  for (int i = 0; i < WORDS; ++i) {
-    P[i * kStagedThreads] =
-        (uint32_t)p[(2 * i) * p_rs + j * p_cs] |
-        ((uint32_t)p[(2 * i + 1) * p_rs + j * p_cs] << 16);
-    Q[i * kStagedThreads] =
-        (uint32_t)q[(2 * i) * q_rs + j * q_cs] |
-        ((uint32_t)q[(2 * i + 1) * q_rs + j * q_cs] << 16);
+  if constexpr (kStagedAdd<NW, DEG>) {
+    __shared__ uint32_t S[2 * WORDS * T];
+    uint32_t* P = S + threadIdx.x;  // word i at P[i * T]
+    uint32_t* Q = P + WORDS * T;
+    for (int i = 0; i < WORDS; ++i) {
+      P[i * T] = (uint32_t)p[(2 * i) * p_rs + j * p_cs] |
+                 ((uint32_t)p[(2 * i + 1) * p_rs + j * p_cs] << 16);
+      Q[i * T] = (uint32_t)q[(2 * i) * q_rs + j * q_cs] |
+                 ((uint32_t)q[(2 * i + 1) * q_rs + j * q_cs] << 16);
+    }
+    pt_add_staged<NW, DEG>(P, Q, T, out, n, j, g);
+  } else {
+    uint32_t P[WORDS], Q[WORDS];
+    load_point<NW, DEG>(P, p, p_rs, j * p_cs);
+    load_point<NW, DEG>(Q, q, q_rs, j * q_cs);
+    pt_add<NW, DEG>(P, P, Q, g);
+    store_point<NW, DEG>(out, n, j, P);
   }
-  pt_add_staged<NW, DEG>(P, Q, kStagedThreads, out, n, j, g);
 }
 
 // a point per lane of three warps: 32 points a block
@@ -177,28 +172,13 @@ GroupConsts<NW, DEG> unpack(const uint32_t* w) {
 }
 
 #ifndef DG16_HOST_CHECK
-inline unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
-
 template <int NW, int DEG>
 int launch_add(const int32_t* p, long long p_rs, long long p_cs,
                const int32_t* q, long long q_rs, long long q_cs, int32_t* out,
                long long n, const uint32_t* consts, cudaStream_t stream) {
-  add_kernel<NW, DEG><<<blocks_for(n), kThreads, 0, stream>>>(
+  constexpr int T = kAddThreads<NW, DEG>;
+  add_kernel<NW, DEG><<<(unsigned)((n + T - 1) / T), T, 0, stream>>>(
       p, p_rs, p_cs, q, q_rs, q_cs, out, n, unpack<NW, DEG>(consts));
-  return (int)cudaGetLastError();
-}
-
-template <int NW, int DEG>
-int launch_add_staged(const int32_t* p, long long p_rs, long long p_cs,
-                      const int32_t* q, long long q_rs, long long q_cs,
-                      int32_t* out, long long n, const uint32_t* consts,
-                      cudaStream_t stream) {
-  add_staged_kernel<NW, DEG>
-      <<<(unsigned)((n + kStagedThreads - 1) / kStagedThreads),
-         kStagedThreads, 0, stream>>>(p, p_rs, p_cs, q, q_rs, q_cs, out, n,
-                                      unpack<NW, DEG>(consts));
   return (int)cudaGetLastError();
 }
 
@@ -251,17 +231,6 @@ int dg16_limb_add(int deg, int nw, const int32_t* p, long long p_rs,
     return dg16::launch_add<12, 1>(p, p_rs, p_cs, q, q_rs, q_cs, out, n, consts, st);
   if (nw == 12 && deg == 2)
     return dg16::launch_add<12, 2>(p, p_rs, p_cs, q, q_rs, q_cs, out, n, consts, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-int dg16_limb_add_staged(int deg, int nw, const int32_t* p, long long p_rs,
-                         long long p_cs, const int32_t* q, long long q_rs,
-                         long long q_cs, int32_t* out, long long n,
-                         const uint32_t* consts, void* stream) {
-  auto st = (cudaStream_t)stream;
-  if (nw == 12 && deg == 2)
-    return dg16::launch_add_staged<12, 2>(p, p_rs, p_cs, q, q_rs, q_cs, out,
-                                          n, consts, st);
   return (int)cudaErrorInvalidValue;
 }
 

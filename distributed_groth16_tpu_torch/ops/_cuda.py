@@ -37,8 +37,6 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
     "limb_group": {
         "dg16_limb_add": [_I, _I, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _P],
-        "dg16_limb_add_staged": [_I, _I, _P, _LL, _LL, _P, _LL, _LL, _P,
-                                 _LL, _P, _P],
         "dg16_limb_double": [_I, _I, _P, _LL, _LL, _P, _LL, _P, _P],
         "dg16_limb_horner": [_I, _I, _P, _LL, _I, _P, _P, _P],
         "dg16_mont_chain": [_I, _P, _LL, _P, _P],

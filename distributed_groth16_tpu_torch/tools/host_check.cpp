@@ -79,9 +79,11 @@ static void run_group(int op, long long n, int c, long long cs,
   std::barrier<> warp(32);
   host_warp = &warp;
   if (op == 0) {
-    blockDim.x = dg16::kThreads;
+    constexpr int T = dg16::kAddThreads<NW, DEG>;
+    blockDim.x = T;
     for (long long j = 0; j < n; ++j) {
-      threadIdx.x = (unsigned)j;
+      blockIdx.x = (unsigned)(j / T);
+      threadIdx.x = (unsigned)(j % T);
       dg16::add_kernel<NW, DEG>(data, n, 1, data + ROWS * n, n, 1, out, n, g);
     }
   } else if (op == 1) {

@@ -63,6 +63,8 @@ CASES = (
        ("double", "g2_381"), ("horner", "g1_377"), ("horner", "g2_381")]
     + [("ntt_small", "fr")]
 )
+# at 12 words kernel 1 on G2 runs blocks of 64: 70 columns take two
+ADD_WIDTHS = {8: (24,), 12: (24, 70)}
 DOUBLE_WIDTHS = {8: (1, 2, 3, 4, 5, 9, 33, 41, 4097), 12: (1, 5, 31, 33, 41)}
 HORNER_CASES = {8: ((2, 4), (3, 8), (5, 4), (32, 8), (64, 4)),
                 12: ((2, 4), (68, 4))}
@@ -132,11 +134,12 @@ def group_cases(kernel: str, gname: str):
     red = points(gname, BASE_POINTS, 1 if gname.startswith("g1") else 2)
     op, deg, nw = OPS[kernel], g.deg, g.nw
     if kernel == "add":
-        P, Q = red, torch.roll(red, 3, dims=1)
-        Q[:, :2] = P[:, :2]  # P + P
-        n = P.shape[1]
-        yield (f"n={n}", [op, deg, n, 0, 1, nw],
-               (_consts(g), _i32(P), _i32(Q)), g.plain_add(P, Q))
+        for n in ADD_WIDTHS[nw]:
+            P = red[:, torch.arange(n) % BASE_POINTS]
+            Q = torch.roll(P, 3, dims=1)
+            Q[:, :2] = P[:, :2]  # P + P
+            yield (f"n={n}", [op, deg, n, 0, 1, nw],
+                   (_consts(g), _i32(P), _i32(Q)), g.plain_add(P, Q))
     elif kernel == "double":
         for n in DOUBLE_WIDTHS[nw]:
             P = red[:, torch.arange(n) % BASE_POINTS]
