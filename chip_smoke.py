@@ -38,16 +38,18 @@ result line):
   7. BLS12 paths (the 12-word kernels, checked in phase 3 too), each run
      once under torch.profiler with the counters zeroed before and read
      after: (a) examples/dmsm_bench.py --curve bls12-377 at its top size,
-     a BLS12-377 G1 d_msm over 2^19 points (the generator, as there),
-     l = 2, n = 8: scalar pack, in-exponent base pack (kernels 1, 2),
-     eight local tree MSMs (kernels 1, 3) and the king's unpack (kernels
-     1, 2), equal to the host sum and to the port's local msm; (b)
-     BLS12-381 local msm at 2^20 distinct points, G1 and G2, each equal to
-     the host ground truth; (c) a BLS12-381 G2 d_msm at 2^16 points, l =
-     2; (d) the scalar route of the CRS pack of phase 4's key (which keeps
-     its dealer scalars), its shares equal to phase 6's point route as
-     affine points, and one 8-party round over them whose proof equals
-     phase 4's prove_single proof byte for byte.
+     a BLS12-377 G1 d_msm over 2^19 distinct points of known discrete
+     logs, l = 2, n = 8: scalar pack, in-exponent base pack (kernels 1,
+     2), eight local tree MSMs (kernels 1, 3) and the king's unpack
+     (kernels 1, 2), equal to the host sum and to the port's local msm;
+     (b) BLS12-381 local msm at 2^23 distinct points (the most the tree
+     MSM takes on one 80 GB card), G1 and G2, each equal to the host
+     ground truth; (c) a BLS12-381 G2 d_msm at 2^16 distinct points,
+     l = 2; (d) the scalar route of the CRS pack of phase 4's key (which
+     keeps its dealer scalars; fixed-base multiplies on kernel 1), its
+     shares equal to phase 6's point route as affine points, and one
+     8-party round over them whose proof equals phase 4's prove_single
+     proof byte for byte.
 
 Output: phase lines, then a {"kernels": [...]} line (launches on the row's
 own path: phase 4 for the 8-word kernels, phase 7 for the 12-word ones;
@@ -1015,9 +1017,10 @@ def phase_mpc(dev, ctx, l=2):
 
 # phase 7's sizes (log2 of the points): (a) examples/dmsm_bench.py --curve
 # bls12-377's top size; (b) BASELINE config 5's curve at the largest size
-# the tree MSM takes on one card without the JAX package's msm(chunk=...),
-# which is not ported; (c) a BLS12-381 G2 d_msm
-BLS_LOG_N = {"a": 19, "b": 20, "c": 16}
+# the tree MSM takes on one 80 GB card without the JAX package's
+# msm(chunk=...), which is not ported (its peak grows linearly: 5.8 GB at
+# 2^20, so 2^24 would need ~92 GB); (c) a BLS12-381 G2 d_msm
+BLS_LOG_N = {"a": 19, "b": 23, "c": 16}
 
 
 def msm_level0(npts: int, rows: int, W: int) -> int:
@@ -1063,6 +1066,29 @@ def random_scalars(rng, n: int, r: int) -> list[int]:
     raw = rng.bytes(40 * n)
     return [int.from_bytes(raw[40 * i : 40 * (i + 1)], "little") % r
             for i in range(n)]
+
+
+def random_scalar_limbs(rng, n: int):
+    """n random 254-bit scalars (below r381 and r377) as (n, 16) 16-bit
+    standard-form limbs, numpy int64: encode_scalars' layout, made without
+    a Python int each."""
+    import numpy as np
+
+    limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.int64)
+    limbs[:, 15] &= (1 << 14) - 1
+    return limbs
+
+
+def dot_mod(limbs, logs, r: int) -> int:
+    """sum_i s_i a_i mod r for scalars s_i given as (n, 16) 16-bit limbs
+    and logs 0 <= a_i < 2^32, exact in int64: each limb times a 16-bit half
+    of a_i is below 2^32, so a column sum of up to 2^31 rows fits."""
+    import numpy as np
+
+    halves = np.stack([logs & 0xFFFF, logs >> 16])  # (2, n)
+    cols = halves @ limbs  # (2, 16)
+    return sum((int(cols[h, k]) << (16 * k + 16 * h))
+               for h in range(2) for k in range(16)) % r
 
 
 def phase_bls(dev, ctx, l=2):
@@ -1125,13 +1151,15 @@ def phase_bls(dev, ctx, l=2):
         return simulate_network_round(
             pp.n, party, [(b_sh[i], s_sh[i]) for i in range(pp.n)])
 
-    def broadcast_dmsm(name, C, pp, F, host, gen, r, pack_scalars, logn):
-        """dmsm_bench's loop body: N copies of the generator, so the
-        result is (sum s_i) G."""
+    def dmsm_path(name, gname, pp, F, r, pack_scalars, logn):
+        """dmsm_bench's loop body over 2^logn distinct points P_i = a_i G
+        of known logs a_i, so the result must be (sum s_i a_i) G."""
         N = 1 << logn
+        g, C, host, gen = groups[gname]
+        pts, logs = small_log_points(g, C, host, gen, N, dev, 5)
         scalars = random_scalars(rng, N, r)
-        want = host.scalar_mul(gen, sum(scalars) % r)
-        pts = C.encode([gen], dev).expand((N, 3) + C.elem_shape)
+        want = host.scalar_mul(
+            gen, sum(s * int(a) for s, a in zip(scalars, logs)) % r)
         with path(name) as rec:
             t0 = time.perf_counter()
             s_sh = pack_scalars(pp, scalars, dev)
@@ -1147,9 +1175,9 @@ def phase_bls(dev, ctx, l=2):
         return pts, scalars, want
 
     # (a) BLS12-377 G1 d_msm, the reference's dmsm_bench configuration
-    pts, scalars, want = broadcast_dmsm(
-        "a", b7.g1_377(), b7.pss377(l), b7.fr377(), b7.G1_HOST,
-        b7.g1_generator_377(), b7.R377, b7.pack_scalars_377, BLS_LOG_N["a"])
+    pts, scalars, want = dmsm_path("a", "g1_377", b7.pss377(l), b7.fr377(),
+                                   b7.R377, b7.pack_scalars_377,
+                                   BLS_LOG_N["a"])
     sc = b7.encode_scalars_377(scalars, dev)
     with path("a_local"):
         local = msm(b7.g1_377(), pts, sc)
@@ -1157,27 +1185,30 @@ def phase_bls(dev, ctx, l=2):
         raise AssertionError("path a: local msm differs from the host sum")
     del pts, scalars, sc, local
 
-    # (b) BLS12-381 local MSMs over 2^20 distinct points, G1 and G2
+    # (b) BLS12-381 local MSMs over 2^23 distinct points, G1 and G2, on
+    # one set of scalars and logs
     N = 1 << BLS_LOG_N["b"]
+    limbs = random_scalar_limbs(rng, N)
+    sc = torch.as_tensor(limbs.astype(np.int32), device=dev)
+    exponent = None
     for name, gname in (("b_g1", "g1_381"), ("b_g2", "g2_381")):
         g, C, host, gen = groups[gname]
         pts, logs = small_log_points(g, C, host, gen, N, dev, 11)
-        scalars = random_scalars(rng, N, b8.R381)
-        want = host.scalar_mul(
-            gen, sum(s * int(a) for s, a in zip(scalars, logs)) % b8.R381)
-        sc = b8.encode_scalars_381(scalars, dev)
+        if exponent is None:
+            exponent = dot_mod(limbs, logs, b8.R381)
+        want = host.scalar_mul(gen, exponent)
         with path(name):
             out = msm(C, pts, sc)
         if C.decode(out) != want:
             raise AssertionError(f"path {name}: msm differs from the host")
         log(f"bls path {name}: msm over 2^{BLS_LOG_N['b']} points equals "
             f"the host; peak device memory {paths[name]['peak_bytes']} bytes")
-        del pts, logs, scalars, sc
+        del pts, logs, out
+    del limbs, sc
 
     # (c) BLS12-381 G2 d_msm
-    broadcast_dmsm("c", b8.g2_381(), b8.pss381(l), b8.fr381(), b8.G2_HOST,
-                   b8.g2_generator_381(), b8.R381, b8.pack_scalars_381,
-                   BLS_LOG_N["c"])
+    dmsm_path("c", "g2_381", b8.pss381(l), b8.fr381(), b8.R381,
+              b8.pack_scalars_381, BLS_LOG_N["c"])
 
     # (d) the scalar route of the CRS pack, BN254, phase 4's key
     pk, comp, z_mont = ctx["pk"], ctx["comp"], ctx["z_mont"]

@@ -89,6 +89,17 @@ def same_shapes(dev, ladder):
             out[f"double_{gname}@{m}"] = device_us(lambda: g.double(x))
         s = red[:, :32].contiguous()
         out[f"horner_{gname}@W32c8"] = device_us(lambda: g.horner(s, 8), 5)
+    # kernel 1 at 12 words (BLS12-381 G1 and G2) at 65,536 and 2^20 columns
+    for gname in ("g1_381", "g2_381"):
+        g, C, host, gen = cs.bls_groups()[gname]
+        base = g.from_rowmajor(
+            cs.small_log_points(g, C, host, gen, 4096, dev, 3)[0])
+        P, Q = cs.point_columns(g, base, 1 << 20, dev, 1)
+        red = g.add(P, Q)
+        for m in (65536, 1 << 20):
+            a, b = red[:, :m].contiguous(), P[:, :m].contiguous()
+            out[f"add_{gname}@{m}"] = device_us(lambda: g.add(a, b), 5)
+        del P, Q, red, a, b
     for S, L in ((256, 128), (128, 256)):
         x = torch.as_tensor(cs.random_fr_limbs(rng, (S, L), 2 * R),
                             device=dev)

@@ -2,8 +2,8 @@
 // forms that follow LimbGroup.add_body and double_body of
 // ops/limb_kernels.py operation for operation:
 //
-// - pt_add: one projective point per thread, every value in registers
-//   (kernel 1);
+// - pt_add: one projective point per thread, its operands in registers
+//   or staged in shared memory (kernel 1);
 // - warps_double: one point per lane of three warps, each warp three of
 //   the products, values handed on through shared memory (kernel 2);
 // - warp_add / warp_double: one point per warp, the independent products
@@ -21,55 +21,6 @@ struct GroupConsts {
 };
 
 template <int NW, int DEG>
-__device__ __forceinline__ void pt_add(uint32_t* out, const uint32_t* P,
-                                       const uint32_t* Q,
-                                       const GroupConsts<NW, DEG>& g) {
-  using E = Ext<NW, DEG>;
-  constexpr int W = E::W;
-  const auto& c = g.f;
-  const uint32_t *X1 = P, *Y1 = P + W, *Z1 = P + 2 * W;
-  const uint32_t *X2 = Q, *Y2 = Q + W, *Z2 = Q + 2 * W;
-  uint32_t t0[W], t1[W], t2[W], t3[W], t4[W], ty[W], a[W], b[W];
-  E::mul(t0, X1, X2, c);
-  E::mul(t1, Y1, Y2, c);
-  E::mul(t2, Z1, Z2, c);
-  E::add(a, X1, Y1, c);
-  E::add(b, X2, Y2, c);
-  E::mul(t3, a, b, c);
-  E::add(a, t0, t1, c);
-  E::sub(t3, t3, a, c);
-  E::add(a, Y1, Z1, c);
-  E::add(b, Y2, Z2, c);
-  E::mul(t4, a, b, c);
-  E::add(a, t1, t2, c);
-  E::sub(t4, t4, a, c);
-  E::add(a, X1, Z1, c);
-  E::add(b, X2, Z2, c);
-  E::mul(ty, a, b, c);
-  E::add(a, t0, t2, c);
-  E::sub(ty, ty, a, c);
-  uint32_t t03[W];  // 3 * t0
-  E::add(t03, t0, t0, c);
-  E::add(t03, t03, t0, c);
-  uint32_t t2b[W], yb[W];
-  E::mul(t2b, t2, g.b3, c);
-  E::mul(yb, ty, g.b3, c);
-  uint32_t z3[W], t1m[W];
-  E::add(z3, t1, t2b, c);
-  E::sub(t1m, t1, t2b, c);
-  // all inputs are dead from here on, so out may alias P or Q
-  E::mul(a, t3, t1m, c);
-  E::mul(b, t4, yb, c);
-  E::sub(out, a, b, c);
-  E::mul(a, yb, t03, c);
-  E::mul(b, t1m, z3, c);
-  E::add(out + W, a, b, c);
-  E::mul(a, z3, t4, c);
-  E::mul(b, t03, t3, c);
-  E::add(out + 2 * W, a, b, c);
-}
-
-template <int NW, int DEG>
 __device__ __forceinline__ void load_point(uint32_t* P, const int32_t* src,
                                            long long rs, long long col) {
   constexpr int WORDS = 3 * NW * DEG;
@@ -78,17 +29,6 @@ __device__ __forceinline__ void load_point(uint32_t* P, const int32_t* src,
     uint32_t lo = (uint32_t)src[(2 * i) * rs + col];
     uint32_t hi = (uint32_t)src[(2 * i + 1) * rs + col];
     P[i] = lo | (hi << 16);
-  }
-}
-
-template <int NW, int DEG>
-__device__ __forceinline__ void store_point(int32_t* dst, long long rs,
-                                            long long col, const uint32_t* P) {
-  constexpr int WORDS = 3 * NW * DEG;
-#pragma unroll
-  for (int i = 0; i < WORDS; ++i) {
-    dst[(2 * i) * rs + col] = (int32_t)(P[i] & 0xffffu);
-    dst[(2 * i + 1) * rs + col] = (int32_t)(P[i] >> 16);
   }
 }
 
@@ -175,69 +115,79 @@ __device__ __forceinline__ void store_coord(int32_t* dst, long long rs,
   }
 }
 
-// -- kernel 1 with its operands staged in shared memory -----------------
+// -- kernel 1: the add of one point per thread ---------------------------
 //
-// pt_add holds both operands in registers: 6 coordinates, 144 words for G2
-// at 12 words, before any temporary, and that instantiation spills. Here
-// each thread stages its two operands in shared memory once and reads a
-// coordinate back at each use (a volatile read, so the compiler keeps no
-// copy of it in registers between uses), and stores each output
-// coordinate as soon as it is final. The values, and the order of every
-// field operation on them, are pt_add's. P and Q point at the thread's
-// slot file: word k of coordinate `which` at [(which * W + k) * stride].
+// The formula is written once, over an operand source that yields a
+// coordinate (0 X, 1 Y, 2 Z; W words) at each use: RegPoint reads the
+// thread's registers, SharedPoint the thread's slot file in shared memory
+// (word k of coordinate `which` at [(which * W + k) * stride]) with a
+// volatile read, so the compiler keeps no copy of it in registers between
+// uses. Held in registers, two G2 operands at 12 words are 144 words
+// before any temporary and spill; staged, they do not (limb_group.cu
+// kStagedAdd). Each output coordinate is stored as soon as it is final.
 
 template <int W>
-__device__ __forceinline__ void sh_coord(uint32_t* v, const volatile uint32_t* S,
-                                         int stride, int which) {
+struct RegPoint {
+  const uint32_t* v;
+  __device__ __forceinline__ void get(uint32_t* dst, int which) const {
 #pragma unroll
-  for (int k = 0; k < W; ++k) v[k] = S[(which * W + k) * stride];
-}
+    for (int k = 0; k < W; ++k) dst[k] = v[which * W + k];
+  }
+};
 
-template <int NW, int DEG>
-__device__ __forceinline__ void pt_add_staged(const volatile uint32_t* P,
-                                              const volatile uint32_t* Q,
-                                              int stride, int32_t* out,
-                                              long long n, long long j,
-                                              const GroupConsts<NW, DEG>& g) {
+template <int W>
+struct SharedPoint {
+  const volatile uint32_t* S;
+  int stride;
+  __device__ __forceinline__ void get(uint32_t* dst, int which) const {
+#pragma unroll
+    for (int k = 0; k < W; ++k) dst[k] = S[(which * W + k) * stride];
+  }
+};
+
+template <int NW, int DEG, class Src>
+__device__ __forceinline__ void pt_add(const Src& P, const Src& Q,
+                                       int32_t* out, long long n, long long j,
+                                       const GroupConsts<NW, DEG>& g) {
   using E = Ext<NW, DEG>;
   constexpr int W = E::W;
   const auto& c = g.f;
   uint32_t t0[W], t1[W], t2[W], t3[W], t4[W], ty[W], a[W], b[W];
-  sh_coord<W>(a, P, stride, 0);
-  sh_coord<W>(b, Q, stride, 0);
+  P.get(a, 0);
+  Q.get(b, 0);
   E::mul(t0, a, b, c);  // X1 X2
-  sh_coord<W>(a, P, stride, 1);
-  sh_coord<W>(b, Q, stride, 1);
+  P.get(a, 1);
+  Q.get(b, 1);
   E::mul(t1, a, b, c);  // Y1 Y2
-  sh_coord<W>(a, P, stride, 2);
-  sh_coord<W>(b, Q, stride, 2);
+  P.get(a, 2);
+  Q.get(b, 2);
   E::mul(t2, a, b, c);  // Z1 Z2
   // t3 = (X1 + Y1)(X2 + Y2) - (t0 + t1); the product's output is scratch
-  sh_coord<W>(a, P, stride, 0);
-  sh_coord<W>(t3, P, stride, 1);
+  P.get(a, 0);
+  P.get(t3, 1);
   E::add(a, a, t3, c);
-  sh_coord<W>(b, Q, stride, 0);
-  sh_coord<W>(t3, Q, stride, 1);
+  Q.get(b, 0);
+  Q.get(t3, 1);
   E::add(b, b, t3, c);
   E::mul(t3, a, b, c);
   E::add(a, t0, t1, c);
   E::sub(t3, t3, a, c);
   // t4 = (Y1 + Z1)(Y2 + Z2) - (t1 + t2)
-  sh_coord<W>(a, P, stride, 1);
-  sh_coord<W>(t4, P, stride, 2);
+  P.get(a, 1);
+  P.get(t4, 2);
   E::add(a, a, t4, c);
-  sh_coord<W>(b, Q, stride, 1);
-  sh_coord<W>(t4, Q, stride, 2);
+  Q.get(b, 1);
+  Q.get(t4, 2);
   E::add(b, b, t4, c);
   E::mul(t4, a, b, c);
   E::add(a, t1, t2, c);
   E::sub(t4, t4, a, c);
   // ty = (X1 + Z1)(X2 + Z2) - (t0 + t2)
-  sh_coord<W>(a, P, stride, 0);
-  sh_coord<W>(ty, P, stride, 2);
+  P.get(a, 0);
+  P.get(ty, 2);
   E::add(a, a, ty, c);
-  sh_coord<W>(b, Q, stride, 0);
-  sh_coord<W>(ty, Q, stride, 2);
+  Q.get(b, 0);
+  Q.get(ty, 2);
   E::add(b, b, ty, c);
   E::mul(ty, a, b, c);
   E::add(a, t0, t2, c);

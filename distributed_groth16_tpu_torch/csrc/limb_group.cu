@@ -59,7 +59,7 @@ constexpr int kThreads = 128;
 constexpr int kHornerMaxW = 68;
 
 // Kernel 1 stages its two operands in shared memory (group.cuh
-// pt_add_staged) where they would not fit in registers beside the
+// SharedPoint) where they would not fit in registers beside the
 // formula's temporaries: G2 at 12 words. Its blocks are then of 64
 // threads: 2 * 72 words a thread, 36.9 KB of static shared memory.
 template <int NW, int DEG>
@@ -85,13 +85,14 @@ __global__ void __launch_bounds__(kAddThreads<NW, DEG>)
       Q[i * T] = (uint32_t)q[(2 * i) * q_rs + j * q_cs] |
                  ((uint32_t)q[(2 * i + 1) * q_rs + j * q_cs] << 16);
     }
-    pt_add_staged<NW, DEG>(P, Q, T, out, n, j, g);
+    pt_add<NW, DEG>(SharedPoint<NW * DEG>{P, T}, SharedPoint<NW * DEG>{Q, T},
+                    out, n, j, g);
   } else {
     uint32_t P[WORDS], Q[WORDS];
     load_point<NW, DEG>(P, p, p_rs, j * p_cs);
     load_point<NW, DEG>(Q, q, q_rs, j * q_cs);
-    pt_add<NW, DEG>(P, P, Q, g);
-    store_point<NW, DEG>(out, n, j, P);
+    pt_add<NW, DEG>(RegPoint<NW * DEG>{P}, RegPoint<NW * DEG>{Q}, out, n, j,
+                    g);
   }
 }
 

@@ -11,7 +11,8 @@ each chunked by l. Two routes to the same shares, as in the JAX package:
     dealer's query discrete logs s_i): each share point
     sum_i M[o,i] (s_i G) = (sum_i M[o,i] s_i) G, so the SCALARS are
     packed with the device field NTT (pss.pack_from_public) and each
-    share point is one windowed fixed-base multiply (ops/fixedbase.py);
+    share point is one windowed fixed-base multiply (ops/fixedbase.py:
+    32 adds a point on kernel 1, no doubling);
   * point route (scalars unknown: every loaded key): the in-exponent PSS
     transform (parallel/pss.py packexp_from_public), one batched GLV
     ladder per G1 query and a full-width ladder for the G2 query, through

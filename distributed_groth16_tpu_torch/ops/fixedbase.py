@@ -4,8 +4,11 @@ counterpart of distributed_groth16_tpu/ops/fixedbase.py.
 Every scalar multiplication in Groth16 setup shares one base (the G1/G2
 generator): precompute T[w][d] = d * 2^(c*w) * G once on the host
 (ops/refmath.py), then each scalar costs N_WINDOWS batched complete
-additions of table gathers. These are row-major curve adds (ops/curve.py),
-plain PyTorch: the JAX package has no TPU kernel here either.
+additions of table gathers. The adds run on the limb-major batches of
+ops/limb_kernels.py: kernel 1 on a CUDA tensor, its plain version on a
+CPU tensor. The result equals the row-major curve adds' (ops/curve.py,
+which the JAX package's fixed_base_mul runs) limb for limb: both are
+RCB16 algorithm 7, canonicalised.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from . import refmath as rm
 from .constants import G1_GENERATOR, G2_GENERATOR, LIMB_BITS
 from .curve import g1, g2
+from .limb_kernels import lg1, lg2
 
 WINDOW_C = 8  # digits per window; divides the 16-bit limb
 N_WINDOWS = 256 // WINDOW_C
@@ -39,17 +43,19 @@ def _host_table(host_ops, base_affine):
 
 @functools.cache
 def _table_np(which: str) -> np.ndarray:
+    """(ROWS, W * 2^c) limb-major table of the G1/G2 generator: entry
+    (w, d) = d * 2^(c*w) * G in column w * 2^c + d."""
     if which == "g1":
-        rows, curve = _host_table(rm.G1, G1_GENERATOR), g1()
+        rows, curve, g = _host_table(rm.G1, G1_GENERATOR), g1(), lg1()
     else:
-        rows, curve = _host_table(rm.G2, G2_GENERATOR), g2()
-    enc = curve.encode([p for row in rows for p in row], "cpu").numpy()
-    return enc.reshape((N_WINDOWS, 1 << WINDOW_C) + enc.shape[1:])
+        rows, curve, g = _host_table(rm.G2, G2_GENERATOR), g2(), lg2()
+    return g.from_rowmajor(
+        curve.encode([p for row in rows for p in row], "cpu")).numpy()
 
 
 @functools.cache
 def generator_table(which: str, device) -> torch.Tensor:
-    """Table (W, 2^c, 3) + elem for the G1/G2 generator on `device`."""
+    """_table_np on `device`."""
     return torch.as_tensor(_table_np(which), device=device)
 
 
@@ -61,18 +67,20 @@ def _digits(scalars_std) -> torch.Tensor:
 
 
 def fixed_base_mul(which: str, scalars_std, chunk: int = 1 << 19):
-    """scalars (n, 16) standard form -> (n, 3)+elem projective points
-    scalar * G on the named generator ("g1" | "g2"), on the scalars'
-    device. Chunked to bound peak memory."""
-    curve = g1() if which == "g1" else g2()
-    table = generator_table(which, scalars_std.device)
+    """scalars (n, 16) standard form -> (n, 3)+elem canonical projective
+    points scalar * G on the named generator ("g1" | "g2"), on the
+    scalars' device. Chunked to bound peak memory."""
+    g = lg1() if which == "g1" else lg2()
+    dev = scalars_std.device
+    table = generator_table(which, dev)
     parts = []
     for s in range(0, scalars_std.shape[0], chunk):
         digits = _digits(scalars_std[s : s + chunk])  # (n, W)
-        acc = curve.infinity((digits.shape[0],), scalars_std.device)
+        col = digits + torch.arange(N_WINDOWS, device=dev) * (1 << WINDOW_C)
+        acc = g.infinity(digits.shape[0], dev)
         for w in range(N_WINDOWS):
-            acc = curve.add(acc, table[w][digits[:, w]])
-        parts.append(acc)
+            acc = g.add(acc, table[:, col[:, w]])
+        parts.append(g.to_rowmajor(acc))
     return torch.cat(parts, dim=0)
 
 

@@ -321,7 +321,7 @@ def test_packexp_over_fr377_matches_host():
 
 @pytest.mark.parametrize("curve", list(CURVES))
 def test_d_msm_matches_host(curve, monkeypatch):
-    """d_msm over n = 8 parties (l = 2) at 32 points, all the generator as
+    """d_msm over n = 8 parties (l = 2) at 8 points, all the generator as
     in the reference's dmsm_bench (so the result is (sum s_i) G): the base
     shares (sum_i M[j][i]) G are packed on the host (the device ladder is
     held above), the scalar shares by pack_scalars; every local MSM is a
@@ -333,7 +333,7 @@ def test_d_msm_matches_host(curve, monkeypatch):
     C = getattr(mod, f"g1_{tag}")()
     host, gen = mod.G1_HOST, getattr(mod, f"g1_generator_{tag}")()
     fr = getattr(mod, f"fr{tag}")()
-    k = 32
+    k = 8
     scalars = _rand(np.random.default_rng(13), k, r)
     want = host.scalar_mul(gen, sum(scalars) % r)
     b_shares = [

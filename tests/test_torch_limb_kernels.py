@@ -288,3 +288,22 @@ def test_double_kernel_matches_plain_version(cuda, group, width):
     got, want = tg.double(a), tg.plain_double(a)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["g1", "g2"])
+def test_fixed_base_mul_on_the_card_matches_the_cpu(cuda, which):
+    """ops/fixedbase.py's window adds on kernel 1 against the same call on
+    the CPU (kernel 1's plain version), limb for limb, over scalars with
+    zero, all-ones and ragged windows, in two chunks."""
+    from distributed_groth16_tpu_torch.ops.fixedbase import fixed_base_mul
+
+    rng = np.random.default_rng(5)
+    sc = rng.integers(0, 1 << 16, size=(700, 16))
+    sc[:, 15] &= 0x0FFF
+    sc[0], sc[1], sc[2, :8] = 0, 0xFFFF, 0
+    sc[1, 15] = 0x0FFF
+    sc = torch.as_tensor(sc.astype(np.int32))
+    got = fixed_base_mul(which, sc.to(cuda), chunk=512)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), fixed_base_mul(which, sc, chunk=512))
