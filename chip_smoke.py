@@ -13,7 +13,8 @@ result line):
      on the card, at the shapes the main path gives it (and Horner also at
      W = 2 and W = 64 window sums, c = 4), kernels 1 and 2 also at the MPC
      ladder's widths (kernel 2 at the pack's and the king's unpack's, and
-     at ragged widths and on a strided view), kernel 4 also over S = 2 ...
+     at ragged widths and on a strided view) and at phase 8's lane-ladder
+     widths (its pack's widest and its king unpack's), kernel 4 also over S = 2 ...
      256 and ragged column counts, compared limb for limb (tolerance zero:
      these are integers), and timed: device time per launch from
      torch.profiler's kernel records, and the wall time of a wrapper call;
@@ -42,21 +43,36 @@ result line):
      logs, l = 2, n = 8: scalar pack, in-exponent base pack (kernels 1,
      2), eight local tree MSMs (kernels 1, 3) and the king's unpack
      (kernels 1, 2), equal to the host sum and to the port's local msm;
-     (b) BLS12-381 local msm at 2^23 distinct points (the most the tree
-     MSM takes on one 80 GB card), G1 and G2, each equal to the host
-     ground truth; (c) a BLS12-381 G2 d_msm at 2^16 distinct points,
+     (b) BASELINE config 5: BLS12-381 local msm at 2^24 distinct points
+     (two tree chunks of 2^23, their sums added on kernel 1), G1 and G2,
+     each equal to the host ground truth; (c) a BLS12-381 G2 d_msm at 2^16 distinct points,
      l = 2; (d) the scalar route of the CRS pack of phase 4's key (which
      keeps its dealer scalars; fixed-base multiplies on kernel 1), its
      shares equal to phase 6's point route as affine points, and one
      8-party round over them whose proof equals phase 4's prove_single
-     proof byte for byte.
+     proof byte for byte;
+  8. MPC path at n = 64 parties (l = 16, t = 15), where "auto" takes the
+     in-exponent point NTT: phase 4's key loaded from .npz and packed by
+     parallel/pointntt.py (lane ladders and butterflies on kernels 1 and
+     2), QAP and witness shares, one 64-party round over LocalSimNet whose
+     every king unpack runs unpackexp_ntt; the proof equals phase 4's
+     prove_single proof byte for byte, a round at r, s != 0 verifies. The
+     pack and the round run under a device-only trace, counters zeroed
+     before and read after; each must launch kernels 1 and 2 on G1 and
+     G2. Then one G1 query's pack and one king unpack by the dense ladder
+     and by the point NTT (equal as affine points, both timed warm), and
+     d_pp at m = 2^15, l = 16 over num = den = 1..m (all ones) and at
+     m = 2^10, l = 2 on random num, den (the host prefix products).
 
 Output: phase lines, then a {"kernels": [...]} line (launches on the row's
 own path: phase 4 for the 8-word kernels, phase 7 for the 12-word ones;
-launches_mpc and launches_bls on the MPC and BLS paths; ms, the device
-time of one launch at the row's shape; ms_per_proof, ms_per_mpc_proof and
-ms_per_bls_path, the summed device time in one warm proof, one MPC proof
-(pack + round) and each BLS path, from torch.profiler's kernel records;
+launches_mpc, launches_bls and launches_mpc64 on the MPC, BLS and n = 64
+MPC paths; ms, the device time of one launch at the row's shape;
+ms_per_proof, ms_per_mpc_proof, ms_per_bls_path and ms_per_mpc64_proof,
+the summed device time in one warm proof, one MPC proof (pack + round),
+each BLS path and one n = 64 MPC proof, from torch.profiler's kernel
+records; kernels 1 and 2 also at the lane ladder's widths, at_lane and
+at_lane_unpack;
 ptxas' registers and spills), the nvidia-smi name/power-limit line, and
 last {"ok": true, "device": {...}}.
 """
@@ -111,6 +127,14 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def smi_sample() -> dict:
+    """The card's SM and memory clocks (MHz), power draw (W) and
+    temperature (C) as nvidia-smi reads them now."""
+    keys = ("clocks.sm", "clocks.mem", "power.draw", "temperature.gpu")
+    vals = nvidia_smi(",".join(keys)).split(",")
+    return {k: float(v.split()[0]) for k, v in zip(keys, vals)}
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean ms per call over `reps` calls after one warm-up call."""
     import torch
@@ -138,7 +162,6 @@ def device_ms(fn, reps: int, tries: int = 6) -> float:
     the kernel), is taken again with twice the calls, up to `tries`
     traces."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     event = cuda_ms(fn, reps)  # includes the warm-up call
@@ -149,9 +172,8 @@ def device_ms(fn, reps: int, tries: int = 6) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        d = sorted(e.time_range.end - e.time_range.start
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and kernel_row(e.name))
+        d = sorted(b - a for a, b, name in device_spans(prof)
+                   if kernel_row(name))
         if d and d[len(d) // 2] * 1e-3 <= 1.5 * event:
             return d[len(d) // 2] * 1e-3
         log(f"device_ms: a trace held {len(d)} kernel records of {calls} "
@@ -159,6 +181,18 @@ def device_ms(fn, reps: int, tries: int = 6) -> float:
             f"event time {event} ms a call; tracing again")
     raise AssertionError(f"torch.profiler gave no usable trace in {tries} "
                          "traces")
+
+
+def device_spans(prof):
+    """(start_us, end_us, name) of every device activity a finished
+    torch.profiler trace holds, read from its raw kineto events: building
+    the profiler's FunctionEvent tree instead takes minutes for a trace of
+    a few million launches."""
+    from torch.autograd import DeviceType
+
+    return [(e.start_ns() * 1e-3, e.end_ns() * 1e-3, e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
 
 
 class Bound:
@@ -301,6 +335,18 @@ def point_columns(g, base, n, dev, seed):
     return P.contiguous(), Q.contiguous()
 
 
+def lane_shapes(r1cs, m: int, l: int = 16) -> dict:
+    """Columns (add and double alike) of lane_ladder's widest launch per
+    group in phase 8's point-NTT pack for n = 4l parties, and in its
+    king's unpack: B rows of P*n lanes, P = 2 with GLV (G1), 1 without;
+    B = ceil(k/l) chunks of the widest query (h_query, k = m, on G1;
+    b_g2_query[1:] on G2), n lanes in the share FFT; one row of n shares
+    in an unpack."""
+    n = 4 * l
+    b1, b2 = -(-m // l), -(-(r1cs.num_wires - 1) // l)
+    return {"g1": (b1 * 2 * n, 2 * n), "g2": (b2 * n, n)}
+
+
 # kernel 2's columns in the king's unpackexp of every MPC round (d_msm:
 # B*K = 1 x n shares, doubled by GLV on G1, at n = 8 parties)
 UNPACK_COLUMNS = {"g1": 16, "g2": 8}
@@ -310,14 +356,16 @@ DOUBLE_RAGGED = (1, 2, 3, 4, 5, 9, 31, 33, 4097)
 NTT_SIZES, NTT_RAGGED_L = (2, 4, 32, 64, 128, 256), (1, 3, 33, 129)
 
 
-def phase_kernels(dev, bound, rng, ladder, n=32 * 16384,
+def phase_kernels(dev, bound, rng, ladder, lane, n=32 * 16384,
                   ntt=((256, 128), (128, 256))):
     """Phase 3: every kernel against its plain version on the card, by
     default at the main path's shapes: n columns is the first tree level of
     a 2^15-point MSM over 32 windows, and (S, L) the two halves of a 2^15
     transform. `ladder` maps each group to ladder_apply's (add, double)
     columns on the MPC path (ladder_shapes): kernels 1 and 2 are held and
-    timed there too, and kernel 2 at the unpack's UNPACK_COLUMNS."""
+    timed there too, and kernel 2 at the unpack's UNPACK_COLUMNS; `lane`
+    to lane_ladder's columns in phase 8's pack and unpack (lane_shapes),
+    where kernels 1 and 2 are held and timed too."""
     import torch
 
     from distributed_groth16_tpu_torch.ops.fixedbase import fixed_base_mul
@@ -375,6 +423,17 @@ def phase_kernels(dev, bound, rng, ladder, n=32 * 16384,
                 kind, RR, f, n_add if kind == "add" else n_dbl, kern, plain,
                 err,
             )
+        # lane_ladder's widths in phase 8's point-NTT pack and unpack: the
+        # add and the doubling at the same columns
+        for where, cols in zip(("lane", "lane_unpack"), lane[gname]):
+            x, y = lred[:, :cols].contiguous(), LQ[:, :cols].contiguous()
+            for kind, kern, plain in (
+                ("add", lambda: g.add(x, y), lambda: g.plain_add(x, y)),
+                ("double", lambda: g.double(x), lambda: g.plain_double(x)),
+            ):
+                err = compare(f"{where} {kind}_{gname}", kern(), plain())
+                entries[f"limb_{kind}_{gname}"][where] = measure(
+                    kind, RR, f, cols, kern, plain, err)
         # kernel 2 at the unpack's width, at ragged widths (a point per
         # lane of a block's three warps: partial warps and blocks) and on a
         # column-strided view, with infinity among redundant coordinates
@@ -537,7 +596,13 @@ def small_log_points(g, C, host, gen, n, dev, seed, windows=4):
         idx = torch.as_tensor(w * 256 + digits[w], device=dev)
         acc = g.add(acc, table[:, idx])
     logs = sum(digits[w].astype(np.int64) << (8 * w) for w in range(windows))
-    return g.to_rowmajor(acc), logs
+    # to row-major in column blocks: canonicalising all 2^24 G2 columns at
+    # once would hold ~40 GB of int64 temporaries
+    out = torch.empty((n,) + g.rm_shape, dtype=torch.int32, device=dev)
+    step = 1 << 21
+    for i in range(0, n, step):
+        out[i : i + step] = g.to_rowmajor(acc[:, i : i + step])
+    return out, logs
 
 
 def phase_kernels_w12(dev, bound, rng, widths):
@@ -651,9 +716,11 @@ def sync(dev) -> None:
 def probes(dev, targets: dict):
     """While active, each callable named in `targets` (label -> (owner,
     attribute)) adds the wall ms of its calls, device drained before and
-    after, to the yielded dict under its label. The targets must not call
-    one another, so the totals are disjoint."""
+    after, to the yielded dict under its label, and its number of calls
+    under label + "_calls". The targets must not call one another, so the
+    totals are disjoint."""
     totals = {label: 0.0 for label in targets}
+    totals.update({f"{label}_calls": 0 for label in targets})
     saved = []
     for label, (owner, name) in targets.items():
         fn = getattr(owner, name)
@@ -666,6 +733,7 @@ def probes(dev, targets: dict):
             finally:
                 sync(dev)
                 totals[_label] += (time.perf_counter() - t0) * 1e3
+                totals[f"{_label}_calls"] += 1
 
         saved.append((owner, name, fn))
         setattr(owner, name, wrapped)
@@ -703,11 +771,11 @@ def kernel_trace(host_ops: bool = True):
     """torch.profiler (CUPTI) over the block. Yields a dict that is filled
     on exit with each kernel's summed device time (per_kernel, ms), kernels
     1 and 2 split by launch width (by_columns: {row: {columns: [launches,
-    ms]}}), and busy_ms, the union of every device activity's interval.
+    ms]}}), busy_ms, the union of every device activity's interval, and
+    trace_s, the seconds spent reading the trace after the block.
     host_ops=False records the device alone, not every host-side torch op:
     after a path of hundreds of thousands of small ops, collecting those
     records takes minutes."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_groth16_tpu_torch.ops import _cuda
@@ -731,10 +799,9 @@ def kernel_trace(host_ops: bool = True):
             yield res
     finally:
         _cuda.Kernel.__call__ = call
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, kernel_row(e.name))
-        for e in prof.events() if e.device_type == DeviceType.CUDA
-    )
+    t0 = time.perf_counter()
+    spans = sorted((a, b, kernel_row(name))
+                   for a, b, name in device_spans(prof))
     busy, end = 0.0, None
     for a, b, _ in spans:
         if end is None or a > end:
@@ -754,6 +821,7 @@ def kernel_trace(host_ops: bool = True):
                     width_bucket(width), [0, 0.0])
                 cell[0] += 1
                 cell[1] += ms
+    res["trace_s"] = time.perf_counter() - t0
 
 
 def sha256_abc():
@@ -1016,11 +1084,10 @@ def phase_mpc(dev, ctx, l=2):
 
 
 # phase 7's sizes (log2 of the points): (a) examples/dmsm_bench.py --curve
-# bls12-377's top size; (b) BASELINE config 5's curve at the largest size
-# the tree MSM takes on one 80 GB card without the JAX package's
-# msm(chunk=...), which is not ported (its peak grows linearly: 5.8 GB at
-# 2^20, so 2^24 would need ~92 GB); (c) a BLS12-381 G2 d_msm
-BLS_LOG_N = {"a": 19, "b": 23, "c": 16}
+# bls12-377's top size; (b) BASELINE config 5 at its own size, 2^24 points
+# (the tree MSM runs two chunks of ops/msm.TREE_MSM_MAX_N = 2^23: one tree
+# over 2^24 would not fit on an 80 GB card); (c) a BLS12-381 G2 d_msm
+BLS_LOG_N = {"a": 19, "b": 24, "c": 16}
 
 
 def msm_level0(npts: int, rows: int, W: int) -> int:
@@ -1036,9 +1103,13 @@ def w12_widths(l: int = 2) -> dict:
     """Columns of kernels 1 and 2, and Horner's (W, c), on phase 7's paths
     for n = 4l parties: a d_msm's base pack adds over B*o*K = N*n columns
     and doubles over B*K = N (no GLV: K = l); the king's unpack adds over
-    l*n and doubles over n; each local MSM adds first over msm_level0."""
+    l*n and doubles over n; each local MSM adds first over msm_level0, (b)
+    over that of one tree chunk."""
+    from distributed_groth16_tpu_torch.ops.msm import TREE_MSM_MAX_N
+
     n = 4 * l
     a, b, c = (1 << BLS_LOG_N[k] for k in "abc")
+    b = min(b, TREE_MSM_MAX_N)
     return {
         "g1_377": {"add": {a * n, msm_level0(a // l, 72, 32), l * n},
                    "double": {a, n}, "horner": (32, 8)},
@@ -1140,7 +1211,8 @@ def phase_bls(dev, ctx, l=2):
         rec.update(launches={k: v for k, v in launches.items() if v},
                    device_ms=tr["per_kernel"], by_columns=tr["by_columns"],
                    device_busy_ms=tr["busy_ms"],
-                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+                   peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   smi_after=smi_sample())
         paths[name] = rec
         log(f"bls path {name}: " + json.dumps(rec))
 
@@ -1185,7 +1257,7 @@ def phase_bls(dev, ctx, l=2):
         raise AssertionError("path a: local msm differs from the host sum")
     del pts, scalars, sc, local
 
-    # (b) BLS12-381 local MSMs over 2^23 distinct points, G1 and G2, on
+    # (b) BLS12-381 local MSMs over 2^24 distinct points, G1 and G2, on
     # one set of scalars and logs
     N = 1 << BLS_LOG_N["b"]
     limbs = random_scalar_limbs(rng, N)
@@ -1246,6 +1318,217 @@ def phase_bls(dev, ctx, l=2):
     log("bls path d: scalar-route shares equal the point route's as affine "
         "points; the proof equals prove_single's byte for byte")
     return paths
+
+
+# the kernels phase 8's pack and round must each launch
+MPC64_KERNELS = ("limb_add_g1", "limb_add_g2", "limb_double_g1",
+                 "limb_double_g2")
+
+
+def phase_mpc64(dev, ctx, l=16, dpp_log_m=15):
+    """Phase 8: the MPC prover at n = 4l = 64 parties, where "auto" takes
+    the in-exponent point NTT (parallel/pointntt.py): phase 4's key loaded
+    from its .npz (no dealer scalars) and packed by the point route, QAP
+    and witness shares, one r = s = 0 round over LocalSimNet whose every
+    king unpack runs unpackexp_ntt, reassemble_proof -> verify; the proof
+    equals phase 4's prove_single proof byte for byte, and a round at
+    r, s != 0 verifies. The pack and the r = s = 0 round each run under a
+    device-only trace, counters zeroed before and read after; each must
+    launch kernels 1 and 2 on G1 and G2. Then one G1 query's pack and one
+    king unpack by both routes (equal as affine points, both timed), and
+    d_pp over num = den = 1..m at m = 2^dpp_log_m (all ones) and on random
+    num, den at m = 2^10, l = 2 (the host prefix products). Returns the
+    launch counts and device ms of the pack + round."""
+    import numpy as np
+    import torch
+
+    from distributed_groth16_tpu_torch.models.groth16 import (
+        ProvingKey, distributed_prove_party, pack_from_witness,
+        pack_proving_key, public_prove_consts, reassemble_proof, verify,
+    )
+    from distributed_groth16_tpu_torch.ops import _cuda
+    from distributed_groth16_tpu_torch.ops.constants import R
+    from distributed_groth16_tpu_torch.ops.curve import g1
+    from distributed_groth16_tpu_torch.ops.field import fr
+    from distributed_groth16_tpu_torch.ops.refmath import finv
+    from distributed_groth16_tpu_torch.parallel import pointntt
+    from distributed_groth16_tpu_torch.parallel.dpp import d_pp
+    from distributed_groth16_tpu_torch.parallel.net import (
+        simulate_network_round,
+    )
+    from distributed_groth16_tpu_torch.parallel.packing import (
+        pack_consecutive, unpack_shares,
+    )
+    from distributed_groth16_tpu_torch.parallel.pss import (
+        PackedSharingParams, pss,
+    )
+
+    r1cs, pubs, comp, z_mont = (ctx[k] for k in ("r1cs", "pubs", "comp",
+                                                   "z_mont"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pk.npz")
+        ctx["pk"].save(path)
+        pk = ProvingKey.load(path, device=dev)
+    assert pk.query_scalars is None
+    pp = pss(l)
+    if pp._pick_exp_method("auto") != "ntt":
+        raise AssertionError(f"n = {pp.n}: auto does not take the point NTT")
+    ni = r1cs.num_instance
+    log(f"mpc64 path: m={pk.domain_size} l={pp.l} n={pp.n} t={pp.t}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    routes = {"unpackexp_ntt": (pointntt, "unpackexp_ntt"),
+              "packexp_ntt": (pointntt, "packexp_ntt"),
+              "dense": (PackedSharingParams, "_apply_point_matrix")}
+
+    def traced(part, fn):
+        for k in _cuda.KERNELS.values():
+            k.launches = 0
+        with probes(dev, routes) as calls, \
+                kernel_trace(host_ops=False) as tr:
+            t0 = time.perf_counter()
+            out = fn()
+            sync(dev)
+            tr["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        missing = [k for k in MPC64_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"mpc64 {part} never launched {missing}")
+        if not tr["per_kernel"]:
+            raise AssertionError("torch.profiler recorded no kernel")
+        if calls["dense_calls"]:
+            raise AssertionError(f"mpc64 {part} ran the dense ladder")
+        rec = dict(launches={k: v for k, v in launches.items() if v},
+                   device_ms=tr["per_kernel"], by_columns=tr["by_columns"],
+                   device_busy_ms=tr["busy_ms"], wall_ms=tr["wall_ms"],
+                   trace_s=tr["trace_s"], smi_after=smi_sample(),
+                   route_calls={k: v for k, v in calls.items()
+                                if k.endswith("_calls")})
+        log(f"mpc64 {part}: " + json.dumps(rec))
+        return out, launches, rec
+
+    pack = {}
+    crs, l_pack, rec_pack = traced(
+        "pack", lambda: pack_proving_key(pk, pp, timings=pack))
+    if rec_pack["route_calls"]["packexp_ntt_calls"] != 5:
+        raise AssertionError("the pack did not take the point NTT for "
+                             "every query")
+    log("mpc64 pack ms per query: " + json.dumps(pack))
+    t0 = time.perf_counter()
+    qap_shares = comp.qap(z_mont).pss(pp)
+    a_sh = pack_from_witness(pp, z_mont[1:])
+    ax_sh = pack_from_witness(pp, z_mont[ni:])
+    sync(dev)
+    t_shares = (time.perf_counter() - t0) * 1e3
+    data = [(crs[i], qap_shares[i], a_sh[i], ax_sh[i]) for i in range(pp.n)]
+
+    def round_(**kw):
+        king = {}
+
+        async def party(net, d):
+            return await distributed_prove_party(
+                pp, *d, net, timings=king if net.is_king else None, **kw
+            )
+
+        res = simulate_network_round(pp.n, party, data)
+        return res, king
+
+    (res, king), l_round, rec_round = traced("round", round_)
+    n_unpack = rec_round["route_calls"]["unpackexp_ntt_calls"]
+    if n_unpack == 0:
+        raise AssertionError("no king unpack took the point NTT")
+    proof = reassemble_proof(res[0], pk)
+    if proof_bytes(proof) != proof_bytes(ctx["proof"]):
+        raise AssertionError("n = 64 MPC proof differs from prove_single's")
+    if not verify(pk.vk, proof, pubs):
+        raise AssertionError("n = 64 MPC proof does not verify")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log("mpc64 phases ms: " + json.dumps(dict(
+        pack=rec_pack["wall_ms"], qap_pss=t_shares, round=rec_round[
+            "wall_ms"], h=king["h"], ab=king["ab"], c=king["c"])))
+    log(f"mpc64 peak device memory (pack + round): {peak} bytes")
+    log(f"mpc64: proof verifies and equals prove_single's; {n_unpack} king "
+        "unpacks through unpackexp_ntt")
+
+    rng = np.random.default_rng(2026)
+    r = int.from_bytes(rng.bytes(40), "little") % R
+    s = int.from_bytes(rng.bytes(40), "little") % R
+    t0 = time.perf_counter()
+    res, _ = round_(pub=public_prove_consts(pk), r=r, s=s)
+    sync(dev)
+    t_zk = (time.perf_counter() - t0) * 1e3
+    zk = reassemble_proof(res[0], pk)
+    if not verify(pk.vk, zk, pubs) or proof_bytes(zk) == proof_bytes(proof):
+        raise AssertionError("n = 64 MPC proof at r, s != 0 does not verify")
+    log(f"mpc64 r, s != 0: verifies, round {t_zk:.1f} ms")
+
+    # one G1 query's pack (h_query, the widest) and one king unpack of 64
+    # shares by both routes, each timed warm (its second call)
+    C = g1()
+
+    def both(fn):
+        out, ms = {}, {}
+        for method in ("dense", "ntt"):
+            fn(method)
+            sync(dev)
+            t0 = time.perf_counter()
+            out[method] = fn(method)
+            sync(dev)
+            ms[method] = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(C.to_affine(out["dense"]),
+                           C.to_affine(out["ntt"])):
+            raise AssertionError("dense and ntt routes differ")
+        return ms
+
+    hq = pk.h_query  # m points, a multiple of l
+    chunks = hq.reshape((hq.shape[0] // pp.l, pp.l) + tuple(hq.shape[1:]))
+    pack_ms = both(lambda m: pp.packexp_from_public(C, chunks, method=m))
+    shares = torch.stack([crs[i].u[0] for i in range(pp.n)])  # (64, 3, 16)
+    unpack_ms = both(lambda m: pp.unpackexp(C, shares, degree2=True,
+                                            method=m))
+    log("mpc64 routes, warm ms (equal as affine points): " + json.dumps(dict(
+        pack_h_query=pack_ms, king_unpack=unpack_ms)))
+
+    # d_pp: num = den = 1..m (dpp_test.rs:20-26), then random num, den
+    F = fr()
+    for lp, log_m, rand in ((l, dpp_log_m, False), (2, 10, True)):
+        m = 1 << log_m
+        qp = pss(lp)
+        if rand:
+            num = random_scalars(rng, m, R - 1)
+            den = random_scalars(rng, m, R - 1)
+            num, den = [v + 1 for v in num], [v + 1 for v in den]
+        else:
+            num = den = list(range(1, m + 1))
+        want, acc = [], 1
+        if rand:
+            for x, y in zip(num, den):
+                acc = acc * x % R * finv(y, R) % R
+                want.append(acc)
+        else:
+            want = [1] * m
+        sn = pack_consecutive(qp, F.encode(num, dev))
+        sd = pack_consecutive(qp, F.encode(den, dev))
+
+        async def party(net, d, qp=qp):
+            return await d_pp(d[0], d[1], qp, net)
+
+        t0 = time.perf_counter()
+        outs = simulate_network_round(qp.n, party,
+                                      [(sn[i], sd[i]) for i in range(qp.n)])
+        sync(dev)
+        t_dpp = (time.perf_counter() - t0) * 1e3
+        got = [int(v) for v in F.decode(unpack_shares(qp,
+                                                      torch.stack(outs)))]
+        if got != want:
+            raise AssertionError(f"d_pp m=2^{log_m} l={lp}: wrong prefix "
+                                 "products")
+        log(f"mpc64 d_pp m=2^{log_m} l={lp} n={qp.n} "
+            f"{'random' if rand else 'num = den = 1..m'}: "
+            f"{t_dpp:.1f} ms, equals the host")
+    per_ms = {k: rec_pack["device_ms"].get(k, 0.0)
+              + rec_round["device_ms"].get(k, 0.0) for k in _cuda.KERNELS}
+    launches = {k: l_pack[k] + l_round[k] for k in _cuda.KERNELS}
+    return launches, per_ms
 
 
 def phase_byte_identity(dev, length=2046, log_m=11):
@@ -1316,18 +1599,30 @@ def main() -> int:
     rng = np.random.default_rng(42)
     circuit = sha256_abc()
     ladder = ladder_shapes(circuit[0], 1 << 15)
-    entries = phase_kernels(dev, bound, rng, ladder)
-    t0 = time.perf_counter()
+    lane = lane_shapes(circuit[0], 1 << 15)
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        log(f"{name}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    entries = phase_kernels(dev, bound, rng, ladder, lane)
+    lap("phase 3, 8 words")
     entries.update(phase_kernels_w12(dev, bound, rng, w12_widths()))
-    log(f"phase kernels 12 words: {time.perf_counter() - t0:.1f} s")
+    lap("phase 3, 12 words")
     launches, per_proof_ms, ctx = phase_main_path(dev, circuit)
+    lap("phase 4")
     phase_byte_identity(dev)
+    lap("phase 5")
     launches_mpc, per_mpc_ms = phase_mpc(dev, ctx)
-    t0 = time.perf_counter()
+    lap("phase 6")
     bls = phase_bls(dev, ctx)
-    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    lap("phase 7")
     launches_bls = {k: sum(p["launches"].get(k, 0) for p in bls.values())
                     for k in _cuda.KERNELS}
+    launches_mpc64, per_mpc64_ms = phase_mpc64(dev, ctx)
+    lap("phase 8")
 
     # every kernel launches on at least one path: kernel 2 (double) only on
     # the MPC and BLS paths' ladders, kernel 4 (ntt_small) only on the main
@@ -1335,18 +1630,21 @@ def main() -> int:
     # numbers are at the main path's shape (as in slice 1) and their
     # launches the main path's; kernels 1 and 2 carry theirs at
     # ladder_apply's widest shape in at_ladder, kernel 2 at the king's
-    # unpack in at_unpack. The 12-word rows' numbers are at the widest
+    # unpack in at_unpack, and both at phase 8's lane ladder in at_lane and
+    # at_lane_unpack. The 12-word rows' numbers are at the widest
     # shape of a BLS path and their launches the BLS paths'.
     rows = []
     for key, e in entries.items():
         err = max(e[k]["max_abs_err"] if k else e["max_abs_err"]
-                  for k in (None, "ladder", "unpack") if k is None or k in e)
+                  for k in (None, "ladder", "unpack", "lane", "lane_unpack")
+                  if k is None or k in e)
         w12 = key.endswith("_w12")
         row = dict(
             name=key, route="cuda", source=e["source"],
             replaces=REPLACES[e["kind"]], shape=e["shape"],
             launches=launches_bls[key] if w12 else launches[key],
             launches_mpc=launches_mpc[key], launches_bls=launches_bls[key],
+            launches_mpc64=launches_mpc64[key],
             launches_by_bls_path={p: r["launches"].get(key, 0)
                                   for p, r in bls.items()},
             max_abs_err=err, match=err == 0, ms=e["ms"], kernel_ms=e["ms"],
@@ -1354,6 +1652,7 @@ def main() -> int:
             bound_by=e["bound_by"], library_ms=None,
             call_ms=e["call_ms"], ms_per_proof=per_proof_ms[key],
             ms_per_mpc_proof=per_mpc_ms[key],
+            ms_per_mpc64_proof=per_mpc64_ms[key],
             ms_per_bls_path={p: r["device_ms"].get(key, 0.0)
                              for p, r in bls.items()},
         )
@@ -1363,8 +1662,9 @@ def main() -> int:
                 row[extra] = e[extra]
         if "ladder" in e:
             row["at_ladder"] = e["ladder"]
-        if "unpack" in e:
-            row["at_unpack"] = e["unpack"]
+        for where in ("unpack", "lane", "lane_unpack"):
+            if where in e:
+                row[f"at_{where}"] = e[where]
         info = [v for f, v in ptxas.items() if ptxas_name(key) in f]
         if info:  # empty when the libraries were built by an earlier run
             row["ptxas"] = dict(info[0])
@@ -1373,7 +1673,8 @@ def main() -> int:
                 row["ptxas"]["warps_per_sm"] = warps_per_sm(
                     info[0]["registers"],
                     96 if key.startswith("limb_double") else 128)
-        if row["launches"] + row["launches_mpc"] + row["launches_bls"] == 0:
+        if (row["launches"] + row["launches_mpc"] + row["launches_bls"]
+                + row["launches_mpc64"]) == 0:
             raise AssertionError(f"no path launched {key}")
         rows.append(row)
     print(json.dumps({"kernels": rows}))

@@ -8,7 +8,8 @@ layout and names so each module has an obvious counterpart:
                fixed-scalar ladder; the four hand-written CUDA kernels
                (csrc/) and the module that compiles them (ops/_cuda.py)
     parallel/  the n-party star (in-process LocalSimNet), packed secret
-               sharing, d_fft and d_msm
+               sharing, the in-exponent point NTT, d_fft, d_msm, deg_red
+               and d_pp
     models/    groth16 setup / prove_single / CRS packing and the MPC
                prover (distributed_prove_party) / verify
     frontend/  R1CS builder and the SHA-256 circuit

@@ -14,6 +14,11 @@ from .proving_key import (  # noqa: F401
     pack_proving_key,
     pack_proving_key_from_scalars,
 )
-from .qap import QAP, CompiledR1CS, PackedQAPShare  # noqa: F401
+from .qap import (  # noqa: F401
+    QAP,
+    CompiledR1CS,
+    PackedQAPShare,
+    qap_from_r1cs,
+)
 from .setup import setup  # noqa: F401
 from .verify import verify  # noqa: F401

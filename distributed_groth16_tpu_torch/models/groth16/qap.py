@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ...frontend.r1cs import R1CS
-from ...ops.field import fr, resolve_device
+from ...ops.field import fr, inclusive_scan, resolve_device
 from ...ops.ntt import Domain, domain
 from ...parallel.packing import pack_strided
 from ...parallel.pss import PackedSharingParams
@@ -74,13 +74,7 @@ class SparseMatrixDevice:
         """(nw, 16) Montgomery assignment -> (num_rows, 16) row inner
         products."""
         F = fr()
-        prefix = F.mul(self.coeffs, z[self.cols])
-        step = 1
-        while step < prefix.shape[0]:
-            prefix = torch.cat(
-                [prefix[:step], F.add(prefix[step:], prefix[:-step])]
-            )
-            step *= 2
+        prefix = inclusive_scan(F.add, F.mul(self.coeffs, z[self.cols]))
         hi = prefix[self.ends_idx]
         lo = prefix[self.starts_idx]
         val = torch.where(self.at_origin[:, None], hi, F.sub(hi, lo))
@@ -154,3 +148,9 @@ class CompiledR1CS:
         return QAP(
             num_inputs=ni, num_constraints=nc, a=a, b=b, c=c, domain=self.dom,
         )
+
+
+def qap_from_r1cs(r1cs: R1CS, assignment: list[int], device=None) -> QAP:
+    """One-shot helper: host assignment ints -> QAP on `device` (None:
+    CUDA)."""
+    return CompiledR1CS(r1cs, device).qap(fr().encode(assignment, device))

@@ -35,6 +35,7 @@ class CurvePoints:
         self.base_p = p
         b3 = tuple(3 * c % p for c in b) if isinstance(b, tuple) else 3 * b % p
         base = field.fq if self.coord_axes == 2 else field
+        self._b_np = base.encode_np([b])[0]  # b, Montgomery
         self._b3_np = base.encode_np([b3])[0]  # 3b, Montgomery
         # GLV endomorphism parameters (ops/glv.py), or None (G2): fixed-
         # scalar ladders then run full-width double-and-add
@@ -104,6 +105,14 @@ class CurvePoints:
 
     def _pack(self, x, y, z):
         return torch.stack([x, y, z], dim=-1 - self.coord_axes)
+
+    def _eq(self, a, b):
+        """Equality of canonical coordinate-field elements (batch shape)."""
+        return torch.all((a == b).flatten(-self.coord_axes), dim=-1)
+
+    def is_infinity(self, p):
+        _, _, z = self._coords(p)
+        return torch.all((z == 0).flatten(-self.coord_axes), dim=-1)
 
     # -- group law (complete, branchless) ------------------------------------
 
@@ -212,6 +221,39 @@ class CurvePoints:
         for i in range(pts.shape[0]):
             acc = self.add(acc, pts[i])
         return acc
+
+    def from_affine(self, aff, inf_mask=None):
+        """(..., 2) + elem affine coordinates (and an optional infinity
+        mask of batch shape) -> projective points."""
+        ax = -1 - self.coord_axes
+        x, y = aff.select(ax, 0), aff.select(ax, 1)
+        batch = x.shape[: x.ndim - self.coord_axes]
+        _, one = self.F.consts(batch, aff.device)
+        p = self._pack(x, y, one)
+        if inf_mask is not None:
+            p = self.select(inf_mask, self.infinity(batch, aff.device), p)
+        return p
+
+    def is_on_curve(self, p):
+        """Y^2 Z == X^3 + b Z^3 (holds at infinity)."""
+        F = self.F
+        X, Y, Z = self._coords(p)
+        b = torch.as_tensor(self._b_np, device=p.device)
+        lhs = F.mul(F.mul(Y, Y), Z)
+        z3 = F.mul(F.mul(Z, Z), Z)
+        rhs = F.add(F.mul(F.mul(X, X), X), F.mul(b, z3))
+        return self._eq(lhs, rhs)
+
+    def eq(self, p, q):
+        """Projective equality: X1 Z2 == X2 Z1 and Y1 Z2 == Y2 Z1, and
+        infinity equals only infinity."""
+        F = self.F
+        X1, Y1, Z1 = self._coords(p)
+        X2, Y2, Z2 = self._coords(q)
+        ex = self._eq(F.mul(X1, Z2), F.mul(X2, Z1))
+        ey = self._eq(F.mul(Y1, Z2), F.mul(Y2, Z1))
+        i1, i2 = self.is_infinity(p), self.is_infinity(q)
+        return (i1 & i2) | (ex & ey & ~(i1 ^ i2))
 
     def to_affine(self, pts):
         """Projective -> affine (x, y) coords; infinity -> (0, 0).

@@ -42,6 +42,17 @@ def resolve_device(device) -> torch.device:
     return torch.device("cuda") if device is None else torch.device(device)
 
 
+def inclusive_scan(op, x):
+    """Inclusive scan of x along axis 0 under an associative op, as
+    Hillis-Steele: log2(len) batched calls of op (earlier operand first),
+    the counterpart of the JAX package's lax.associative_scan."""
+    d = 1
+    while d < x.shape[0]:
+        x = torch.cat([x[:d], op(x[:-d], x[d:])])
+        d *= 2
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Integer core: int64 tensors, limb axis 0, nonnegative entries. Constant
 # operands are limb columns (k, 1, ...) that broadcast over the batch.

@@ -630,3 +630,49 @@ def ladder_apply(g: LimbGroup, pts_lm, bits, signs, nbits: int):
         x = g.add(pair[..., 0], pair[..., 1])
         k //= 2
     return x[..., 0]  # (ROWS, B, o)
+
+
+# ---------------------------------------------------------------------------
+# Per-lane fixed-scalar ladder: out[..., j] = s_j * pts[..., j] (the lane
+# twiddles and scalings of the in-exponent point NTT, parallel/pointntt.py):
+# a batched add/double/select sweep on limb-major tensors, so every add is
+# a kernel-1 launch and every doubling a kernel-2 launch on a CUDA tensor.
+# ---------------------------------------------------------------------------
+
+
+def lane_ladder(g: LimbGroup, pts_lm, bits, signs, nbits: int,
+                beta: int | None = None):
+    """pts_lm: (ROWS, B, n) limb-major points; bits: (P, n, nbits) 0/1 and
+    signs: (P, n) bool or None, on pts_lm's device, from
+    curve.fixed_scalar_ladder_tensors for the n lane scalars. P = 2 under
+    GLV (part 1 acts on phi(P) = (beta X : Y : Z), so `beta` is the
+    curve's GLV beta), 1 without. Returns (ROWS, B, n): lane j of every
+    batch row times s_j.
+
+    Each step adds at (ROWS, B, P, n) columns and doubles the bases there
+    (no doubling after the last bit); the P parts are then combined by
+    one add. A negative GLV half negates its base once before the sweep:
+    the multiples of -P are the negated multiples of P."""
+    RR = g.ROWS
+    B, n = pts_lm.shape[1], pts_lm.shape[2]
+    P = bits.shape[0]
+    base = pts_lm[:, :, None, :]  # (ROWS, B, 1, n)
+    if P == 2:
+        CR = g.CR
+        x = g.F.mul(pts_lm[:CR].long(), torch.as_tensor(
+            to_limbs(beta * g.F.mont_r % g.F.p, g.base_nl),
+            device=pts_lm.device).view(CR, 1, 1))
+        phi = torch.cat([x.to(torch.int32), pts_lm[CR:]], dim=0)
+        base = torch.cat([base, phi[:, :, None, :]], dim=2)
+    if signs is not None:
+        base = torch.where(signs, g.neg(base), base)
+    take = bits == 1  # (P, n, nbits), selected per step as a view
+    inf = torch.as_tensor(g.inf_col, device=pts_lm.device).view(RR, 1, 1, 1)
+    acc = inf.expand(RR, B, P, n)
+    for i in range(nbits):
+        acc = torch.where(take[..., i], g.add(acc, base), acc)
+        if i + 1 < nbits:
+            base = g.double(base)
+    if P == 1:
+        return acc[:, :, 0]
+    return g.add(acc[:, :, 0], acc[:, :, 1])

@@ -189,3 +189,17 @@ def ntt_limb(x, n: int, inverse: bool = False):
     out. No 1/n scaling on inverse (the caller applies size_inv, as the
     Domain decomposition of ifft does)."""
     return _ntt_rec(x[:, :, None], n, inverse, 1)[:, :, 0]
+
+
+def fft_rm(coeffs_rm, n: int, inverse: bool = False):
+    """(n, 16) row-major Montgomery -> (n, 16) canonical: ntt_limb on the
+    limb-major transpose (kernel 4 on a CUDA tensor), scaled by 1/n on
+    inverse."""
+    F = lfr()
+    out = ntt_limb(coeffs_rm.t().contiguous(), n, inverse).long()
+    if inverse:
+        size_inv = torch.as_tensor(
+            to_limbs(finv(n, R) * F.mont_r % R), device=out.device
+        ).view(NL, 1)
+        out = F.mul(out, size_inv)
+    return F.canon(out).to(torch.int32).t().contiguous()

@@ -1,2 +1,3 @@
-"""The n-party star: transport (net), packed secret sharing (pss), and the
-distributed transform and MSM kernels built on them (dfft, dmsm)."""
+"""The n-party star: transport (net), packed secret sharing (pss), the
+in-exponent point NTT (pointntt), and the distributed kernels built on
+them (dfft, dmsm, degred, dpp)."""

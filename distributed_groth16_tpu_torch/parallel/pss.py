@@ -18,12 +18,13 @@ unpack2: IFFT on `share`, FFT on `secret2`, keep the even indices of the
 
 Field-vector transforms run batched over leading axes through ops/ntt.py
 (tiny row-major NTTs, vectorized over the chunk axis), over BN254 Fr only.
-The group-element ("in the exponent") maps are the same linear maps as
-precomputed o x k matrices over the scalar field, applied with one
-batched fixed-scalar double-and-add ladder, limb-major through
-ops/limb_kernels.ladder_apply (kernels 1 and 2 on a CUDA tensor) at every
-size, on any curve with a limb group (BN254, BLS12-377 G1, BLS12-381
-G1/G2).
+The group-element ("in the exponent") maps are the same linear maps,
+applied two ways: as precomputed o x k matrices over the scalar field in
+one batched fixed-scalar double-and-add ladder, limb-major through
+ops/limb_kernels.ladder_apply, on any curve with a limb group (BN254,
+BLS12-377 G1, BLS12-381 G1/G2); or, over BN254 Fr from n = 64 parties
+up, as the point-domain NTT of parallel/pointntt.py. Kernels 1 and 2
+carry both on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..ops.constants import FR_GENERATOR, R
 from ..ops.curve import CurvePoints, fixed_scalar_ladder_tensors
 from ..ops.field import fr
 from ..ops.ntt import domain
+from . import pointntt
 
 
 class PackedSharingParams:
@@ -50,8 +52,8 @@ class PackedSharingParams:
     the device field-share transforms stay BN254-only (their NTT tables
     are built over ops/constants.R) and raise NotImplementedError."""
 
-    # the JAX package switches "auto" to its point-domain NTT from this
-    # many parties up (parallel/pointntt.py, not ported yet)
+    # "auto" takes the point-domain NTT (parallel/pointntt.py) from this
+    # many parties up, as the JAX package does
     _NTT_THRESHOLD = 64
 
     def __init__(self, l: int, modulus: int = R,
@@ -228,32 +230,36 @@ class PackedSharingParams:
 
     def packexp_from_public(self, curve: CurvePoints, pts, method="auto"):
         """(..., l) + point -> (..., n) + point (dmsm/mod.rs:61-68)."""
-        self._check_method(method)
+        if self._pick_exp_method(method) == "ntt":
+            return pointntt.packexp_ntt(self, curve, pts)
         return self._apply_point_matrix(curve, "pack", pts)
 
     def unpackexp(
         self, curve: CurvePoints, shares, degree2: bool = False, method="auto"
     ):
         """(..., n) + point -> (..., l) + point (dmsm/mod.rs:7-48)."""
-        self._check_method(method)
+        if self._pick_exp_method(method) == "ntt":
+            return pointntt.unpackexp_ntt(self, curve, shares, degree2)
         which = "unpack2" if degree2 else "unpack"
         return self._apply_point_matrix(curve, which, shares)
 
-    def _check_method(self, method: str) -> None:
-        """Only the dense ladder is ported: raise where the JAX package
-        would take its point-domain NTT (never for another scalar field,
-        where the dense ladder is its only in-exponent path)."""
+    def _pick_exp_method(self, method: str) -> str:
+        """"dense" (the matrix ladder) or "ntt" (parallel/pointntt.py):
+        "auto" takes the point NTT from _NTT_THRESHOLD parties up. The
+        point NTT's domains are over BN254 Fr, so over another scalar
+        field "ntt" raises and "auto" takes the dense ladder."""
         if method not in ("auto", "dense", "ntt"):
             raise ValueError(f"unknown method {method!r}")
-        if method == "ntt" or (
-            method == "auto" and self.n >= self._NTT_THRESHOLD
-            and self.modulus == R
-        ):
-            raise NotImplementedError(
-                "the in-exponent point-domain NTT (parallel/pointntt.py of "
-                "the JAX package, taken there by method='ntt' and by "
-                f"'auto' at n >= {self._NTT_THRESHOLD}) is not ported yet"
-            )
+        if self.modulus != R:
+            if method == "ntt":
+                raise NotImplementedError(
+                    "the in-exponent point NTT is BN254-Fr-only; use the "
+                    "dense ladder for this scalar field"
+                )
+            return "dense"
+        if method == "auto":
+            return "ntt" if self.n >= self._NTT_THRESHOLD else "dense"
+        return method
 
 
 @functools.cache

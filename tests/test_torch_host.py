@@ -47,15 +47,20 @@ PORT_MODULES = [
     "distributed_groth16_tpu_torch.models.groth16.verify",
     "distributed_groth16_tpu_torch.models.groth16.proving_key",
     "distributed_groth16_tpu_torch.models.groth16.ext_wit",
+    "distributed_groth16_tpu_torch.models.groth16.reference",
     "distributed_groth16_tpu_torch.utils.config",
     "distributed_groth16_tpu_torch.parallel.net",
     "distributed_groth16_tpu_torch.parallel.pss",
     "distributed_groth16_tpu_torch.parallel.packing",
     "distributed_groth16_tpu_torch.parallel.dfft",
     "distributed_groth16_tpu_torch.parallel.dmsm",
+    "distributed_groth16_tpu_torch.parallel.pointntt",
+    "distributed_groth16_tpu_torch.parallel.degred",
+    "distributed_groth16_tpu_torch.parallel.dpp",
 ]
 COPIES = ["constants", "refmath", "primemath", "glv", "pairing"]
 FRONTEND_COPIES = ["r1cs", "sha256"]
+MODEL_COPIES = ["reference"]
 
 
 def _forbidden(name: str) -> bool:
@@ -127,9 +132,10 @@ def _code_of(path: pathlib.Path) -> str:
     return ast.dump(ast.parse(path.read_text()))
 
 
-@pytest.mark.parametrize("mod", COPIES + FRONTEND_COPIES)
+@pytest.mark.parametrize("mod", COPIES + FRONTEND_COPIES + MODEL_COPIES)
 def test_host_module_is_an_exact_copy(mod):
-    sub = "ops" if mod in COPIES else "frontend"
+    sub = ("ops" if mod in COPIES else "frontend" if mod in FRONTEND_COPIES
+           else "models/groth16")
     ref = ROOT / "distributed_groth16_tpu" / sub / f"{mod}.py"
     assert _code_of(PORT / sub / f"{mod}.py") == _code_of(ref)
 

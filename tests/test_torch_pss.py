@@ -200,14 +200,32 @@ def test_ladder_apply_on_the_card_matches_the_cpu(pps, which):
     assert torch.equal(got.cpu(), want)
 
 
-def test_unported_point_ntt_raises(pps):
+def test_point_ntt_route_choice(pps, monkeypatch):
+    """"auto" takes the point NTT from n = 64 parties over BN254 Fr and
+    the dense ladder over Fr381, where "ntt" raises (the point NTT's
+    domains are over BN254 Fr), as in the JAX package."""
+    from distributed_groth16_tpu_torch.ops.bls12_381 import pss381
+    from distributed_groth16_tpu_torch.parallel import pointntt
+
     pp, _ = pps
-    pts = g1().encode(_host_points("g1", np.random.default_rng(1), L), CPU)
-    with pytest.raises(NotImplementedError, match="pointntt"):
-        pp.packexp_from_public(g1(), pts, method="ntt")
-    big = pss.PackedSharingParams(16)  # n = 64: "auto" picks the NTT there
-    with pytest.raises(NotImplementedError, match="pointntt"):
-        big.unpackexp(g1(), torch.zeros((64, 3, 16), dtype=torch.int32))
+    big, b381 = pss.PackedSharingParams(16), pss381(16)
+    assert [big._pick_exp_method(m) for m in ("auto", "dense", "ntt")] == \
+        ["ntt", "dense", "ntt"]
+    assert pp._pick_exp_method("auto") == "dense"  # n = 8
+    assert b381._pick_exp_method("auto") == "dense"
+    with pytest.raises(NotImplementedError, match="BN254-Fr-only"):
+        b381._pick_exp_method("ntt")
+    with pytest.raises(ValueError, match="unknown method"):
+        pp._pick_exp_method("fast")
+    seen = []
+    monkeypatch.setattr(pointntt, "packexp_ntt",
+                        lambda *a: seen.append("pack") or "ntt")
+    monkeypatch.setattr(pointntt, "unpackexp_ntt",
+                        lambda *a: seen.append(("unpack", a[3])) or "ntt")
+    assert big.packexp_from_public(g1(), None) == "ntt"
+    assert big.unpackexp(g1(), None, degree2=True) == "ntt"
+    assert pp.packexp_from_public(g1(), None, method="ntt") == "ntt"
+    assert seen == ["pack", ("unpack", True), "pack"]
 
 
 M = 16
