@@ -62,12 +62,25 @@ result line):
      G2. Then one G1 query's pack and one king unpack by the dense ladder
      and by the point NTT (equal as affine points, both timed warm), and
      d_pp at m = 2^15, l = 16 over num = den = 1..m (all ones) and at
-     m = 2^10, l = 2 on random num, den (the host prefix products).
+     m = 2^10, l = 2 on random num, den (the host prefix products);
+  9. the reference's deployment, one OS process per party: stars of
+     n = 8 ranks on the card over mTLS sockets on localhost
+     (examples/launch.py spawns fresh interpreters, each with its own
+     CUDA context): add_ids; nonlocal_kernel dfft, dmsm and dpp at the
+     example's default sizes, each checked by rank 0 against refmath; and
+     nonlocal_sha256 on phase 4's circuit with a fresh key cache (rank 0
+     runs setup and packs by the scalar route, ranks 1-7 load the key and
+     pack in the exponent): the proof verifies and equals phase 4's
+     prove_single proof byte for byte, every rank launched kernels 1 and 3
+     on G1 and G2 and the king kernel 2 on both. Logs each rank's phase
+     ms and peak memory, the star's wall time, nvidia-smi's memory.used
+     and the socket round beside phase 6's in-process one.
 
 Output: phase lines, then a {"kernels": [...]} line (launches on the row's
 own path: phase 4 for the 8-word kernels, phase 7 for the 12-word ones;
 launches_mpc, launches_bls and launches_mpc64 on the MPC, BLS and n = 64
-MPC paths; ms, the device time of one launch at the row's shape;
+MPC paths; launches_star, summed over the ranks of phase 9's SHA-256
+star; ms, the device time of one launch at the row's shape;
 ms_per_proof, ms_per_mpc_proof, ms_per_bls_path and ms_per_mpc64_proof,
 the summed device time in one warm proof, one MPC proof (pack + round),
 each BLS path and one n = 64 MPC proof, from torch.profiler's kernel
@@ -933,6 +946,9 @@ def phase_mpc(dev, ctx, l=2):
     import numpy as np
     import torch
 
+    from distributed_groth16_tpu_torch.examples.nonlocal_sha256 import (
+        proof_bytes,
+    )
     from distributed_groth16_tpu_torch.models.groth16 import (
         ProvingKey, distributed_prove_party, pack_from_witness,
         pack_proving_key, public_prove_consts, reassemble_proof, verify,
@@ -989,6 +1005,8 @@ def phase_mpc(dev, ctx, l=2):
     res, king = round_()
     split.update(h=king["h"], ab=king["ab"], c=king["c"],
                  round=king["round"])
+    ctx["mpc_round"] = dict(round=king["round"], h=king["h"], ab=king["ab"],
+                            c=king["c"])  # phase 9 sets its star against it
     t0 = time.perf_counter()
     proof = reassemble_proof(res[0], pk)
     split["reassemble"] = (time.perf_counter() - t0) * 1e3
@@ -1170,6 +1188,9 @@ def phase_bls(dev, ctx, l=2):
     import numpy as np
     import torch
 
+    from distributed_groth16_tpu_torch.examples.nonlocal_sha256 import (
+        proof_bytes,
+    )
     from distributed_groth16_tpu_torch.models.groth16 import (
         distributed_prove_party, pack_from_witness, pack_proving_key,
         reassemble_proof, verify,
@@ -1342,6 +1363,9 @@ def phase_mpc64(dev, ctx, l=16, dpp_log_m=15):
     import numpy as np
     import torch
 
+    from distributed_groth16_tpu_torch.examples.nonlocal_sha256 import (
+        proof_bytes,
+    )
     from distributed_groth16_tpu_torch.models.groth16 import (
         ProvingKey, distributed_prove_party, pack_from_witness,
         pack_proving_key, public_prove_consts, reassemble_proof, verify,
@@ -1531,9 +1555,121 @@ def phase_mpc64(dev, ctx, l=16, dpp_log_m=15):
     return launches, per_ms
 
 
+# phase 9's transport: mTLS, as the reference deploys it (the card's
+# machine has the cryptography package that utils/certs.py needs)
+STAR_PLAIN = False
+# what every rank of phase 9's SHA-256 star must launch, and the king too
+STAR_KERNELS = ("limb_add_g1", "limb_add_g2", "limb_horner_g1",
+                "limb_horner_g2")
+KING_KERNELS = ("limb_double_g1", "limb_double_g2")
+
+
+@contextmanager
+def smi_memory_peak():
+    """Samples nvidia-smi memory.used (MiB, all processes on the card)
+    every 0.5 s while the block runs; yields a dict whose "max_mib" holds
+    the largest sample on exit."""
+    import threading
+
+    res = {"max_mib": 0.0, "samples": 0}
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            mib = float(nvidia_smi("memory.used").split()[0])
+            res["max_mib"] = max(res["max_mib"], mib)
+            res["samples"] += 1
+            stop.wait(0.5)
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield res
+    finally:
+        stop.set()
+        th.join(timeout=70)
+
+
+def phase_star(dev, ctx, n=8):
+    """Phase 9: the reference's deployment, one OS process per party on
+    the card, over a ProdNet star on localhost (examples/launch.py spawns
+    n ranks, each a fresh interpreter with its own CUDA context on
+    `dev`): (a) add_ids; (b) nonlocal_kernel dfft, dmsm and dpp at the
+    example's default sizes, rank 0 checking each against refmath; (c)
+    nonlocal_sha256 on phase 4's circuit (m = 2^15, l = 2) with a fresh
+    key cache, so rank 0 runs setup (seed 42) and ranks 1.. load its .npz:
+    every rank exits 0, rank 0's proof verifies and equals phase 4's
+    prove_single proof byte for byte, every rank launched kernels 1 and 3
+    on G1 and G2, and the king kernel 2 on both. Returns the kernels'
+    launches summed over the ranks of (c)."""
+    import torch
+
+    from distributed_groth16_tpu_torch.examples.launch import launch
+    from distributed_groth16_tpu_torch.examples.nonlocal_sha256 import (
+        proof_bytes,
+    )
+    from distributed_groth16_tpu_torch.ops import _cuda
+
+    torch.cuda.empty_cache()
+    log(f"star: n={n} ranks on {dev}, plain TCP={STAR_PLAIN}, "
+        f"nvidia-smi memory.used before: {nvidia_smi('memory.used')}")
+    star = dict(plain=STAR_PLAIN, deadline_s=300.0)
+    t0 = time.perf_counter()
+    lines = launch("add_ids", n, **star)
+    if [x["sum"] for x in lines] != [n * (n - 1) // 2] * n:
+        raise AssertionError(f"add_ids star: {lines}")
+    log(f"star add_ids: every rank has the sum {n * (n - 1) // 2}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    for kernel in ("dfft", "dmsm", "dpp"):
+        t0 = time.perf_counter()
+        lines = launch("nonlocal_kernel", n, ["--kernel", kernel], **star)
+        if not all(x["ok"] for x in lines):
+            raise AssertionError(f"nonlocal_kernel {kernel}: {lines[0]}")
+        log(f"star {kernel}: rank 0 equals refmath; star "
+            f"{time.perf_counter() - t0:.1f} s, rank ms "
+            + json.dumps([x["ms"] for x in lines]))
+
+    with tempfile.TemporaryDirectory() as cache, smi_memory_peak() as mem:
+        t0 = time.perf_counter()
+        lines = launch("nonlocal_sha256", n,
+                       ["--circuit", "sha256", "--msg", "abc",
+                        "--cache-dir", cache], **star)
+        wall = (time.perf_counter() - t0) * 1e3
+    king = lines[0]
+    if not king.get("verified"):
+        raise AssertionError("the star's proof does not verify")
+    if bytes.fromhex(king["proof"]) != proof_bytes(ctx["proof"]):
+        raise AssertionError("the star's proof differs from prove_single's")
+    for x in lines:
+        missing = [k for k in STAR_KERNELS if x["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"rank {x['party']} never launched {missing}")
+    missing = [k for k in KING_KERNELS if king["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"the king never launched {missing}")
+    for x in lines:
+        log(f"star sha256 rank {x['party']}: " + json.dumps(dict(
+            phases_ms=x["phases_ms"], round_ms=x["round_ms"],
+            peak_bytes=x["peak_bytes"],
+            launches={k: v for k, v in x["launches"].items() if v})))
+    rounds = [x["phases_ms"]["MPC prove (over sockets)"] for x in lines]
+    log("star sha256: " + json.dumps(dict(
+        wall_ms=wall, socket_round_ms_max=max(rounds),
+        socket_round_ms_king=rounds[0], king_round_ms=king["round_ms"],
+        in_process_round_phase6=ctx.get("mpc_round"),
+        smi_memory_used_max_mib=mem["max_mib"], smi_samples=mem["samples"],
+    )))
+    log("star sha256: every rank exited 0; the proof verifies and equals "
+        "prove_single's")
+    return {k: sum(x["launches"][k] for x in lines) for k in _cuda.KERNELS}
+
+
 def phase_byte_identity(dev, length=2046, log_m=11):
     """Phase 5: at m = 2^11 the card's proof equals the CPU's (the CPU
     runs every kernel's plain version) for one key and witness."""
+    from distributed_groth16_tpu_torch.examples.nonlocal_sha256 import (
+        proof_bytes,
+    )
     from distributed_groth16_tpu_torch.frontend.r1cs import mult_chain_circuit
     from distributed_groth16_tpu_torch.models.groth16 import (
         CompiledR1CS, prove_single, setup, verify,
@@ -1555,12 +1691,6 @@ def phase_byte_identity(dev, length=2046, log_m=11):
         raise AssertionError("m = 2^11 proof does not verify")
     log(f"byte identity m=2^11: card == cpu ({len(proof_bytes(proof_gpu))} "
         f"bytes), cpu prove {t_cpu:.1f} s")
-
-
-def proof_bytes(proof) -> bytes:
-    """Affine coordinates as 32-byte little-endian words, a | b | c."""
-    words = [*proof.a, *proof.b[0], *proof.b[1], *proof.c]
-    return b"".join(int(w).to_bytes(32, "little") for w in words)
 
 
 def main() -> int:
@@ -1623,6 +1753,8 @@ def main() -> int:
                     for k in _cuda.KERNELS}
     launches_mpc64, per_mpc64_ms = phase_mpc64(dev, ctx)
     lap("phase 8")
+    launches_star = phase_star(dev, ctx)
+    lap("phase 9")
 
     # every kernel launches on at least one path: kernel 2 (double) only on
     # the MPC and BLS paths' ladders, kernel 4 (ntt_small) only on the main
@@ -1645,6 +1777,7 @@ def main() -> int:
             launches=launches_bls[key] if w12 else launches[key],
             launches_mpc=launches_mpc[key], launches_bls=launches_bls[key],
             launches_mpc64=launches_mpc64[key],
+            launches_star=launches_star[key],
             launches_by_bls_path={p: r["launches"].get(key, 0)
                                   for p, r in bls.items()},
             max_abs_err=err, match=err == 0, ms=e["ms"], kernel_ms=e["ms"],
@@ -1674,7 +1807,7 @@ def main() -> int:
                     info[0]["registers"],
                     96 if key.startswith("limb_double") else 128)
         if (row["launches"] + row["launches_mpc"] + row["launches_bls"]
-                + row["launches_mpc64"]) == 0:
+                + row["launches_mpc64"] + row["launches_star"]) == 0:
             raise AssertionError(f"no path launched {key}")
         rows.append(row)
     print(json.dumps({"kernels": rows}))

@@ -1,0 +1,171 @@
+"""The distributed Groth16 prover over real sockets, one OS process per
+party — the port of the JAX package's examples/nonlocal_sha256.py, the
+reference's headline deployment (groth16/examples/nonlocal_sha256.rs:126,
+launched by scripts/sha256.zsh).
+
+Every rank builds the circuit and witness deterministically, gets the
+proving key (rank 0 runs setup and publishes it; the others wait for it
+and load it), packs the same PSS dealing, keeps its own row, and runs the
+proving round over a ProdNet star (mTLS unless --plain). Rank 0
+reassembles the proof and checks the pairing.
+
+  python -m distributed_groth16_tpu_torch.examples.nonlocal_sha256 \\
+      --id <rank> --input <addressfile> --certs <certdir> --n 8 \\
+      [--circuit sha256|chain] [--msg abc] [--plain] [--device cpu] \\
+      [--cache-dir DIR]
+
+The key is cached as pk_<digest>.npz under --cache-dir (default
+.bench_cache/torch/ at the root of the checkout). Rank 0's key keeps its
+dealer scalars, so rank 0 packs by the scalar route; the loaded .npz has
+none, so ranks 1.. pack in the exponent. The shares are equal as affine
+points, so the proof is the same.
+
+The last output line is JSON: {"party", "ok", "phases_ms", "round_ms"
+(this rank's h / ab / c), "launches", "peak_bytes"}, and on rank 0 also
+"verified" and "proof" (the hex of the affine proof, a | b | c as 32-byte
+little-endian words).
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import hashlib
+import os
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from ..models.groth16 import (
+    CompiledR1CS,
+    ProvingKey,
+    distributed_prove_party,
+    pack_from_witness,
+    pack_proving_key,
+    reassemble_proof,
+    setup,
+    verify,
+)
+from ..ops.field import fr
+from ..parallel.pss import pss
+from ..utils.timers import PhaseTimings, phase
+from ._star import (
+    add_star_args, connect, device_stats, drain, open_device,
+    party_count, report,
+)
+
+DEFAULT_CACHE = Path(__file__).resolve().parents[2] / ".bench_cache" / "torch"
+
+
+def build_circuit(opt):
+    """(r1cs, z, public inputs) of --circuit."""
+    if opt.circuit == "sha256":
+        from ..frontend.sha256 import sha256_circuit
+
+        cs, pubs = sha256_circuit(opt.msg.encode())
+        r1cs, z = cs.finish()
+        return r1cs, z, pubs
+    from ..frontend.r1cs import mult_chain_circuit
+
+    nc = (1 << opt.log2_constraints) - 2
+    r1cs, z = mult_chain_circuit(opt.x0, nc).finish()
+    return r1cs, z, z[1:r1cs.num_instance]
+
+
+def load_or_make_pk(r1cs, opt, dev) -> ProvingKey:
+    """Rank 0 computes the (deterministic, seed 42) key and publishes it
+    by an atomic rename; the other ranks wait for the file and load it —
+    the trusted-dealer role the reference's examples play in-process."""
+    key = hashlib.sha256(
+        f"{opt.circuit}-{r1cs.num_constraints}-{r1cs.num_wires}".encode()
+    ).hexdigest()[:16]
+    os.makedirs(opt.cache_dir, exist_ok=True)
+    path = os.path.join(opt.cache_dir, f"pk_{key}.npz")
+    if os.path.exists(path):
+        return ProvingKey.load(path, device=dev)
+    if opt.id == 0:
+        pk = setup(r1cs, device=dev)
+        tmp = f"{path[:-4]}.{os.getpid()}.tmp.npz"
+        pk.save(tmp)  # savez keeps the name verbatim (.npz suffix present)
+        os.replace(tmp, path)
+        return pk
+    deadline = time.time() + opt.setup_timeout
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            raise TimeoutError("rank 0 never published the proving key")
+        time.sleep(0.5)
+    return ProvingKey.load(path, device=dev)
+
+
+def proof_bytes(proof) -> bytes:
+    """Affine coordinates as 32-byte little-endian words, a | b | c."""
+    words = [*proof.a, *proof.b[0], *proof.b[1], *proof.c]
+    return b"".join(int(w).to_bytes(32, "little") for w in words)
+
+
+async def run(opt) -> int:
+    dev = open_device(opt.device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    n = party_count(opt)
+    if n % 4 != 0:
+        raise ValueError(f"party count {n} is not 4l")
+    pp = pss(n // 4)
+    timings = PhaseTimings()
+
+    with phase("build circuit", timings):
+        r1cs, z, pubs = build_circuit(opt)
+    with phase("setup/load pk", timings):
+        pk = load_or_make_pk(r1cs, opt, dev)
+        drain(dev)
+    with phase("packing", timings):
+        z_mont = fr().encode(z, dev)
+        qap_share = CompiledR1CS(r1cs, dev).qap(z_mont).pss(pp)[opt.id]
+        crs_share = pack_proving_key(pk, pp, strip=True)[opt.id]
+        a_share = pack_from_witness(pp, z_mont[1:])[opt.id]
+        ax_share = pack_from_witness(pp, z_mont[r1cs.num_instance:])[opt.id]
+        drain(dev)
+    with phase("connect", timings):
+        net = await connect(opt, n, dev)
+    round_ms: dict = {}
+    try:
+        with phase("MPC prove (over sockets)", timings):
+            share = await distributed_prove_party(
+                pp, crs_share, qap_share, a_share, ax_share, net,
+                timings=round_ms,
+            )
+            drain(dev)
+    finally:
+        await net.close()
+
+    line = {"party": opt.id, "ok": True, "phases_ms": timings.as_millis(),
+            "round_ms": round_ms}
+    if opt.id == 0:
+        proof = reassemble_proof(share, pk)
+        ok = verify(pk.vk, proof, pubs)
+        print(f"rank 0: pairing verification {'OK' if ok else 'FAILED'}")
+        line.update(ok=ok, verified=ok, proof=proof_bytes(proof).hex())
+    print(f"rank {opt.id} phase timings (ms):")
+    for k, v in timings.as_millis().items():
+        print(f"  {k:30s} {v:10.1f}")
+    report({**line, **device_stats(dev)})
+    return 0 if line["ok"] else 1
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    add_star_args(p)
+    p.add_argument("--circuit", choices=("sha256", "chain"), default="sha256")
+    p.add_argument("--msg", default="hello world")
+    p.add_argument("--log2-constraints", type=int, default=10)
+    p.add_argument("--x0", type=int, default=999992)
+    p.add_argument("--setup-timeout", type=float, default=1800.0)
+    p.add_argument("--cache-dir", default=str(DEFAULT_CACHE),
+                   help="where the proving key is cached")
+    return asyncio.run(run(p.parse_args(argv)))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -29,10 +29,14 @@ to the net's NetConfig.op_timeout_s) and raises a structured MpcNetError —
 MpcTimeoutError / MpcDisconnectError carrying (party, peer, sid, op, job)
 — instead of hanging on a silent peer.
 
+Backends: LocalSimNet (below), and ProdNet (prodnet.py), the star over
+TCP or mTLS sockets, one process per party, where every value crosses as
+a copy (utils/serde.py).
+
 Left out of this port so far: the JAX package's telemetry hooks
 (collective latency histograms, timeout and retry counters, net.* spans,
-the flight recorder and the trace aggregator) and the socket transport
-(prodnet.py); `flush_telemetry` is a no-op.
+the flight recorder and the trace aggregator); `flush_telemetry` is a
+no-op.
 """
 
 from __future__ import annotations

@@ -57,10 +57,23 @@ PORT_MODULES = [
     "distributed_groth16_tpu_torch.parallel.pointntt",
     "distributed_groth16_tpu_torch.parallel.degred",
     "distributed_groth16_tpu_torch.parallel.dpp",
+    "distributed_groth16_tpu_torch.utils.serde",
+    "distributed_groth16_tpu_torch.utils.certs",
+    "distributed_groth16_tpu_torch.utils.timers",
+    "distributed_groth16_tpu_torch.parallel.faults",
+    "distributed_groth16_tpu_torch.parallel.prodnet",
+    "distributed_groth16_tpu_torch.examples",
+    "distributed_groth16_tpu_torch.examples._star",
+    "distributed_groth16_tpu_torch.examples.add_ids",
+    "distributed_groth16_tpu_torch.examples.nonlocal_kernel",
+    "distributed_groth16_tpu_torch.examples.nonlocal_sha256",
+    "distributed_groth16_tpu_torch.examples.launch",
 ]
 COPIES = ["constants", "refmath", "primemath", "glv", "pairing"]
 FRONTEND_COPIES = ["r1cs", "sha256"]
 MODEL_COPIES = ["reference"]
+UTIL_COPIES = ["serde", "certs"]
+PARALLEL_COPIES = ["faults"]
 
 
 def _forbidden(name: str) -> bool:
@@ -112,9 +125,11 @@ def test_source_scan_covers_every_port_module():
         assert f"{rel}.py" in scanned or f"{rel}/__init__.py" in scanned, mod
 
 
-def test_net_config_matches_the_jax_package():
-    """Every field the port's NetConfig has, the JAX package's has too,
-    with the same type and default."""
+def test_net_config_matches_the_jax_package(monkeypatch):
+    """The port's NetConfig has the JAX package's seven fields, with the
+    same types and defaults, and from_env() reads the same DG16_NET_*
+    overrides into the same values; the knobs it reads are declared with
+    the JAX package's text."""
     import dataclasses
 
     from distributed_groth16_tpu.utils import config as ref
@@ -123,21 +138,48 @@ def test_net_config_matches_the_jax_package():
     ref_fields = {f.name: (f.type, f.default)
                   for f in dataclasses.fields(ref.NetConfig)}
     fields = dataclasses.fields(port.NetConfig)
-    assert [f.name for f in fields] == ["op_timeout_s"]
+    assert [f.name for f in fields] == [
+        "op_timeout_s", "connect_timeout_s", "connect_base_delay_s",
+        "connect_max_delay_s", "connect_jitter", "heartbeat_interval_s",
+        "idle_timeout_s",
+    ]
+    assert [f.name for f in fields] == list(ref_fields)
     for f in fields:
         assert (f.type, f.default) == ref_fields[f.name], f.name
+    assert port.KNOBS == {k: v for k, v in ref.KNOBS.items()
+                          if k.startswith("DG16_NET_") or k == "DG16_TRACE"}
+    assert dataclasses.asdict(port.NetConfig.from_env()) == \
+        dataclasses.asdict(ref.NetConfig.from_env())
+    overrides = {"DG16_NET_OP_TIMEOUT_S": "7.5",
+                 "DG16_NET_CONNECT_TIMEOUT_S": "3",
+                 "DG16_NET_CONNECT_BASE_DELAY_S": "0.25",
+                 "DG16_NET_CONNECT_MAX_DELAY_S": "2",
+                 "DG16_NET_CONNECT_JITTER": "0",
+                 "DG16_NET_HEARTBEAT_S": "-1",
+                 "DG16_NET_IDLE_TIMEOUT_S": "42"}
+    for k, v in overrides.items():
+        monkeypatch.setenv(k, v)
+    got = dataclasses.asdict(port.NetConfig.from_env())
+    assert got == dataclasses.asdict(ref.NetConfig.from_env())
+    assert got == {"op_timeout_s": 7.5, "connect_timeout_s": 3.0,
+                   "connect_base_delay_s": 0.25, "connect_max_delay_s": 2.0,
+                   "connect_jitter": 0.0, "heartbeat_interval_s": -1.0,
+                   "idle_timeout_s": 42.0}
 
 
 def _code_of(path: pathlib.Path) -> str:
     return ast.dump(ast.parse(path.read_text()))
 
 
-@pytest.mark.parametrize("mod", COPIES + FRONTEND_COPIES + MODEL_COPIES)
+@pytest.mark.parametrize("mod", COPIES + FRONTEND_COPIES + MODEL_COPIES
+                         + UTIL_COPIES + PARALLEL_COPIES)
 def test_host_module_is_an_exact_copy(mod):
     sub = ("ops" if mod in COPIES else "frontend" if mod in FRONTEND_COPIES
-           else "models/groth16")
+           else "utils" if mod in UTIL_COPIES
+           else "parallel" if mod in PARALLEL_COPIES else "models/groth16")
     ref = ROOT / "distributed_groth16_tpu" / sub / f"{mod}.py"
     assert _code_of(PORT / sub / f"{mod}.py") == _code_of(ref)
+    assert (PORT / sub / f"{mod}.py").read_bytes() == ref.read_bytes()
 
 
 # the BLS12 modules: their host part (parameters derived from the seed,
