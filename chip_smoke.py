@@ -74,13 +74,31 @@ result line):
      prove_single proof byte for byte, every rank launched kernels 1 and 3
      on G1 and G2 and the king kernel 2 on both. Logs each rank's phase
      ms and peak memory, the star's wall time, nvidia-smi's memory.used
-     and the socket round beside phase 6's in-process one.
+     and the socket round beside phase 6's in-process one;
+ 10. a circom/snarkjs user's path on phase 4's circuit and key: .r1cs,
+     .wtns and .zkey written to a temporary directory and read back (the
+     key onto the card by ProvingKey.from_zkey), each equal to the
+     original; warm prove_single with the .zkey key (the .r1cs's C, the
+     .wtns's witness) equal to phase 4's proof at r = s = 0, launching
+     kernels 1, 3 and 4 as often as phase 4's warm proof, and to phase
+     4's key's proof at one r, s != 0; the proof through snarkjs JSON,
+     arkworks bytes and Ethereum tuples and calldata and back; then 32
+     SHA-256 statements of the same circuit proved with the .zkey key at
+     distinct r, s and checked by one RLC fold (verify_batch, its
+     prepare_inputs MSM on the card), then with one proof made false:
+     the fold false, verify_each naming it, bundles built and checked,
+     and VerifyBatchRunner over four stand-in jobs of 8 proofs, of which
+     only the one holding the false proof fails. Logs the artifacts'
+     bytes and ms, the phase split beside phase 4's key's, and the fold's
+     ms split (device prepare_inputs, host fold, pairings) beside single
+     verifies.
 
 Output: phase lines, then a {"kernels": [...]} line (launches on the row's
 own path: phase 4 for the 8-word kernels, phase 7 for the 12-word ones;
 launches_mpc, launches_bls and launches_mpc64 on the MPC, BLS and n = 64
 MPC paths; launches_star, summed over the ranks of phase 9's SHA-256
-star; ms, the device time of one launch at the row's shape;
+star; launches_zkey over phase 10; ms, the device time of one launch at
+the row's shape;
 ms_per_proof, ms_per_mpc_proof, ms_per_bls_path and ms_per_mpc64_proof,
 the summed device time in one warm proof, one MPC proof (pack + round),
 each BLS path and one n = 64 MPC proof, from torch.profiler's kernel
@@ -95,10 +113,12 @@ from __future__ import annotations
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from contextlib import contextmanager
 
 # 32-bit integer multiply(-add) results per clock per SM on compute
@@ -930,9 +950,11 @@ def phase_main_path(dev, circuit, log_m=15):
     log(f"main path launches (setup + 3 proofs): {json.dumps(launches)}")
     log(f"main path peak device memory: {peak} bytes")
     log("main path: both proofs verify")
-    return launches, per_proof_ms, dict(r1cs=r1cs, pubs=pubs, pk=pk,
+    return launches, per_proof_ms, dict(r1cs=r1cs, z=z, pubs=pubs, pk=pk,
                                         comp=comp, z_mont=z_mont,
-                                        proof=proof1)
+                                        proof=proof1, warm=warm,
+                                        per_proof_launches=per_proof,
+                                        per_proof_ms=per_proof_ms)
 
 
 def phase_mpc(dev, ctx, l=2):
@@ -1693,6 +1715,289 @@ def phase_byte_identity(dev, length=2046, log_m=11):
         f"bytes), cpu prove {t_cpu:.1f} s")
 
 
+# the kernels a .zkey key's warm proof must launch as phase 4's key's does
+ZKEY_KERNELS = ("limb_add_g1", "limb_add_g2", "limb_horner_g1",
+                "limb_horner_g2", "ntt_small")
+
+
+def fold_statement(i: int):
+    """The i-th statement of phase 10's fold: SHA-256 of one single-block
+    message of at most 55 bytes, so every statement has phase 4's
+    circuit (A, B and C) and its own publics."""
+    from distributed_groth16_tpu_torch.frontend.sha256 import sha256_circuit
+
+    msg = f"dg16 fold {i:03d}: one SHA-256 block".encode()
+    cs, pubs = sha256_circuit(msg)
+    r1cs, z = cs.finish()
+    return r1cs, z, pubs
+
+
+def stand_in_job(circuit_id, items):
+    """The part of a service job (distributed_groth16_tpu/service/jobs.py
+    ProofJob) that VerifyBatchRunner reads: its circuit id and its
+    proofs_file payload of (proof, publics) items."""
+    from distributed_groth16_tpu_torch.frontend.ark_serde import (
+        proof_to_bytes,
+    )
+
+    return types.SimpleNamespace(circuit_id=circuit_id, fields={
+        "proofs_file": json.dumps([
+            {"proof": proof_to_bytes(p).hex(),
+             "publicInputs": [str(x) for x in pub]} for p, pub in items
+        ]).encode()})
+
+
+def phase_zkey(dev, ctx, statement=fold_statement, n_fold=32, jobs=4,
+               tampered=13):
+    """Phase 10: a circom/snarkjs user's path on phase 4's circuit and key.
+    (a) .r1cs, .wtns and .zkey written to a temporary directory and read
+    back (ProvingKey.from_zkey onto `dev`), each equal to the original;
+    (b) warm prove_single with the .zkey key, equal to phase 4's proof at
+    r = s = 0 and to phase 4's key's proof at one r, s != 0, launching
+    the kernels phase 4's warm proof launches, as often; (c) the proof
+    through snarkjs JSON, arkworks bytes and Ethereum tuples and back;
+    (d) n_fold statements (`statement(i)`: r1cs, witness, publics) proved
+    with the .zkey key at distinct r, s != 0 and checked by one RLC fold
+    (verify_batch), then with proof `tampered` made false: verify_batch
+    false, verify_each naming it, bundles, and VerifyBatchRunner over
+    `jobs` stand-in jobs, of which only the one holding the false proof
+    fails. Counters zeroed before, read after. Returns the launches."""
+    import numpy as np
+
+    from distributed_groth16_tpu_torch.frontend import (
+        ark_serde, ethereum, readers, snarkjs,
+    )
+    from distributed_groth16_tpu_torch.frontend.zkey import (
+        read_zkey, write_zkey,
+    )
+    from distributed_groth16_tpu_torch.models.groth16 import (
+        CompiledR1CS, Proof, ProvingKey, prove_single, verify,
+    )
+    from distributed_groth16_tpu_torch.ops import _cuda
+    from distributed_groth16_tpu_torch.ops import refmath as rm
+    from distributed_groth16_tpu_torch.ops.constants import G1_GENERATOR, R
+    from distributed_groth16_tpu_torch.ops.curve import g1, g2
+    from distributed_groth16_tpu_torch.ops.field import fr
+    from distributed_groth16_tpu_torch.verifier import (
+        InvalidProofError, PreparedVerifyingKey, PvkCache, VerifyBatchRunner,
+        VerifyExecutor, build_bundle, check_bundle, verify_batch, verify_each,
+    )
+    from distributed_groth16_tpu_torch.verifier import batch as vbatch
+
+    r1cs, z, pubs, pk4 = (ctx[k] for k in ("r1cs", "z", "pubs", "pk"))
+    proof_bytes = ark_serde.proof_to_bytes
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+    ms = {}
+
+    def timed(name, fn, *a, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync(dev)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    # (a) artifacts
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {ext: os.path.join(tmp, f"sha256.{ext}")
+                 for ext in ("r1cs", "wtns", "zkey")}
+        blobs = {
+            "r1cs": timed("write_r1cs", readers.write_r1cs, r1cs),
+            "wtns": timed("write_wtns", readers.write_wtns, z),
+            "zkey": timed("write_zkey", write_zkey, pk4, r1cs),
+        }
+        for ext, blob in blobs.items():
+            with open(paths[ext], "wb") as f:
+                f.write(blob)
+        sizes = {ext: os.path.getsize(p) for ext, p in paths.items()}
+        r1cs_z, _ = timed("read_r1cs", readers.read_r1cs, paths["r1cs"])
+        z_z = timed("read_wtns", readers.read_wtns, paths["wtns"])
+        _, mats = timed("read_zkey", read_zkey, paths["zkey"], dev)
+        pk = timed("from_zkey", ProvingKey.from_zkey, paths["zkey"], dev)
+    if vars(r1cs_z) != vars(r1cs) or z_z != list(z):
+        raise AssertionError(".r1cs or .wtns differs after its round trip")
+    if (mats.a, mats.b) != (r1cs.a, r1cs.b) or any(mats.c):
+        raise AssertionError(".zkey matrices differ from the circuit's A, B")
+    if pk.device != dev or vars(pk.vk) != vars(pk4.vk) or (
+            pk.domain_size, pk.num_instance) != (pk4.domain_size,
+                                                 pk4.num_instance):
+        raise AssertionError(".zkey key's header or vk differs")
+    for q in ("beta_g1", "delta_g1", "a_query", "b_g1_query", "b_g2_query",
+              "h_query", "l_query"):
+        C = g2() if q == "b_g2_query" else g1()
+        if not bool(C.eq(getattr(pk, q), getattr(pk4, q)).all()):
+            raise AssertionError(f".zkey key's {q} differs from phase 4's")
+    log("zkey artifacts: " + json.dumps(dict(
+        bytes=sizes, ms={k: ms[k] for k in (
+            "write_r1cs", "write_wtns", "write_zkey", "read_r1cs",
+            "read_wtns", "read_zkey", "from_zkey")})))
+
+    # (b) proving: the .r1cs gives C, the .wtns the witness
+    comp = CompiledR1CS(r1cs_z, dev)
+    z_mont = fr().encode(z_z, dev)
+    proof0 = prove_single(pk, comp, z_mont)  # first proof of this key
+    splits = {"zkey": [], "phase4_key": []}
+    for turn in ("phase4_key", "zkey", "zkey", "phase4_key") * 2:
+        t = {}
+        args = ((pk, comp, z_mont) if turn == "zkey"
+                else (pk4, ctx["comp"], ctx["z_mont"]))
+        before = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        proof = prove_single(*args, timings=t)
+        t["total"] = sum(t.values())
+        splits[turn].append(t)
+        if turn == "zkey" and len(splits["zkey"]) == 1:
+            warm_launches = {k: v.launches - before[k]
+                             for k, v in _cuda.KERNELS.items()}
+            warm = proof
+    if not proof_bytes(proof0) == proof_bytes(warm) == proof_bytes(
+            ctx["proof"]):
+        raise AssertionError(".zkey key's proof differs from phase 4's")
+    if dev.type == "cuda":
+        if warm_launches != ctx["per_proof_launches"]:
+            raise AssertionError(
+                f".zkey proof launched {warm_launches}, phase 4's "
+                f"{ctx['per_proof_launches']}")
+        for k in ZKEY_KERNELS:
+            if warm_launches[k] == 0:
+                raise AssertionError(f".zkey proof never launched {k}")
+    rng = np.random.default_rng(1010)
+    r, s = (int.from_bytes(rng.bytes(40), "little") % R for _ in range(2))
+    p_rs = prove_single(pk, comp, z_mont, r=r, s=s)
+    if proof_bytes(p_rs) != proof_bytes(prove_single(pk4, comp, z_mont,
+                                                     r=r, s=s)):
+        raise AssertionError(".zkey key's r, s != 0 proof differs")
+    if not verify(pk.vk, p_rs, pubs):
+        raise AssertionError(".zkey key's r, s != 0 proof does not verify")
+    log("zkey prove launches per warm proof: " + json.dumps(warm_launches))
+    if dev.type == "cuda":
+        with kernel_trace() as tr:
+            traced = prove_single(pk, comp, z_mont)
+            sync(dev)
+        if proof_bytes(traced) != proof_bytes(warm):
+            raise AssertionError("traced .zkey proof differs")
+        ours = tr["per_kernel"]
+        log("zkey prove kernel device ms per warm proof (phase 4's key in "
+            "phase 4): " + json.dumps(dict(
+                zkey=ours, zkey_total=sum(ours.values()),
+                zkey_device_busy_ms=tr["busy_ms"],
+                phase4={k: v for k, v in ctx["per_proof_ms"].items() if v},
+                phase4_total=sum(ctx["per_proof_ms"].values()))))
+    medians = {key: {ph: statistics.median(t[ph] for t in turns)
+                     for ph in turns[0]} for key, turns in splits.items()}
+    log("zkey prove phases ms (warm, r = s = 0, 4 turns each in ABBA "
+        "order: medians, then the turns; phase 4's key in phase 4): "
+        + json.dumps(dict(median=medians, turns=splits, phase4=ctx["warm"])))
+
+    # (c) codecs
+    vk = pk.vk
+    text = timed("snarkjs", lambda: json.dumps(snarkjs.dump_proof(warm)))
+    raw = timed("ark_bytes", ark_serde.proof_to_bytes, warm)
+    eth = timed("eth", ethereum.proof_to_eth, warm)
+    call = ethereum.solidity_calldata(warm, pubs)
+    if (snarkjs.load_proof(json.loads(text)) != warm
+            or ark_serde.proof_from_bytes(raw) != warm
+            or ethereum.proof_from_eth(eth) != warm
+            or ethereum.vk_from_eth(ethereum.vk_to_eth(vk)) != vk):
+        raise AssertionError("a codec round trip changed the proof or vk")
+    groups = json.loads(f"[{call}]")
+    if ([len(g) for g in groups] != [2, 2, 2, len(pubs)]
+            or [int(w, 16) for w in groups[3]] != [x % R for x in pubs]
+            or int(groups[1][0][0], 16) != warm.b[0][1]):
+        raise AssertionError("solidity calldata malformed")
+    log(f"zkey codecs: snarkjs {len(text)} chars, ark {len(raw)} bytes, "
+        f"calldata {len(call)} chars: every round trip equal")
+
+    # (d) the verifier: n_fold statements of one circuit, one fold
+    t0 = time.perf_counter()
+    stmts = [statement(i) for i in range(n_fold)]
+    t_witness = time.perf_counter() - t0
+    for r1cs_i, _, _ in stmts:
+        if (r1cs_i.a, r1cs_i.b, r1cs_i.c) != (r1cs.a, r1cs.b, r1cs.c):
+            raise AssertionError("a fold statement has another circuit")
+    publics = [[int(x) for x in p] for _, _, p in stmts]
+    if len({tuple(p) for p in publics}) != n_fold:
+        raise AssertionError("fold statements share publics")
+    t0 = time.perf_counter()
+    proofs = []
+    for i, (_, z_i, _) in enumerate(stmts):
+        r_i, s_i = (int.from_bytes(rng.bytes(40), "little") % R
+                    for _ in range(2))
+        proofs.append(prove_single(pk, comp, fr().encode(z_i, dev),
+                                   r=r_i or 1, s=s_i or 1))
+    t_prove = time.perf_counter() - t0
+    cid = "sha256"
+    cache = PvkCache()
+    pvk = cache.get_or_prepare(
+        cid, lambda: PreparedVerifyingKey.prepare(cid, vk, dev))
+    split = {"prepare_inputs_batched": (vbatch, "prepare_inputs_batched"),
+             "host_fold": (vbatch, "folded_pairs"),
+             "pairing_check": (vbatch, "pairing_check")}
+    with probes(dev, split) as fold_ms:
+        ok = timed("fold", verify_batch, pvk, proofs, publics)
+    if ok is not True:
+        raise AssertionError(f"{n_fold}-proof fold is not true")
+    singles = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        if not verify(vk, proofs[i], publics[i]):
+            raise AssertionError(f"proof {i} does not verify")
+        singles.append((time.perf_counter() - t0) * 1e3)
+    bad = list(proofs)
+    p = bad[tampered]
+    bad[tampered] = Proof(a=p.a, b=p.b, c=rm.G1.add(p.c, G1_GENERATOR))
+    if timed("fold_tampered", verify_batch, pvk, bad, publics) is not False:
+        raise AssertionError("the fold with a false proof is true")
+    verdicts = timed("verify_each", verify_each, pvk, bad, publics)
+    if [i for i, v in enumerate(verdicts) if not v] != [tampered]:
+        raise AssertionError(f"verify_each names {verdicts}")
+    bundle = timed("build_bundle", build_bundle, pvk, proofs, publics)
+    swapped = json.loads(json.dumps(bundle))
+    pairs = swapped["pairs"]
+    pairs[0][1], pairs[1][1] = pairs[1][1], pairs[0][1]
+    if (timed("check_bundle", check_bundle, bundle) is not True
+            or check_bundle(swapped) is not False):
+        raise AssertionError("bundle check wrong")
+    # the job runner over stand-in jobs, its executor sharing the cache
+    store = types.SimpleNamespace(load=lambda c: (None, pk))
+    per = n_fold // jobs
+    items = list(zip(bad, publics))
+    batch = [stand_in_job(cid, items[j * per : (j + 1) * per])
+             for j in range(jobs)]
+    runner = VerifyBatchRunner(VerifyExecutor(store, cache))
+    outcomes = timed("run_batch", runner.run_batch, batch,
+                     types.SimpleNamespace(circuit_id=cid))
+    for j, (job, out) in enumerate(outcomes):
+        if job is not batch[j]:
+            raise AssertionError("run_batch reordered its jobs")
+        if j == tampered // per:
+            if not (isinstance(out, InvalidProofError)
+                    and out.indices == [tampered % per]):
+                raise AssertionError(f"job {j}: {out!r}")
+        elif not (isinstance(out, dict) and out["verdicts"] == [True] * per):
+            raise AssertionError(f"job {j}: {out!r}")
+    sync(dev)
+    launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    single = sorted(singles)
+    median = (single[1] + single[2]) / 2
+    log("zkey fold: " + json.dumps(dict(
+        proofs=n_fold, witness_s=t_witness, prove_s=t_prove,
+        fold_ms=ms["fold"], fold_split_ms={k: fold_ms[k] for k in split},
+        fold_tampered_ms=ms["fold_tampered"],
+        verify_each_ms=ms["verify_each"], single_verify_ms=singles,
+        single_verify_median_ms=median,
+        singles_over_fold=n_fold * median / ms["fold"],
+        build_bundle_ms=ms["build_bundle"],
+        check_bundle_ms=ms["check_bundle"], run_batch_ms=ms["run_batch"],
+        jobs=jobs, failed_job=tampered // per,
+        failed_message=str(outcomes[tampered // per][1]))))
+    log(f"zkey path launches: {json.dumps(launches)}")
+    log(f"zkey: the .zkey key proves phase 4's proofs; the {n_fold}-proof "
+        "fold is true, false with one false proof, whose index verify_each "
+        "and the job runner name")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1755,6 +2060,8 @@ def main() -> int:
     lap("phase 8")
     launches_star = phase_star(dev, ctx)
     lap("phase 9")
+    launches_zkey = phase_zkey(dev, ctx)
+    lap("phase 10")
 
     # every kernel launches on at least one path: kernel 2 (double) only on
     # the MPC and BLS paths' ladders, kernel 4 (ntt_small) only on the main
@@ -1778,6 +2085,7 @@ def main() -> int:
             launches_mpc=launches_mpc[key], launches_bls=launches_bls[key],
             launches_mpc64=launches_mpc64[key],
             launches_star=launches_star[key],
+            launches_zkey=launches_zkey[key],
             launches_by_bls_path={p: r["launches"].get(key, 0)
                                   for p, r in bls.items()},
             max_abs_err=err, match=err == 0, ms=e["ms"], kernel_ms=e["ms"],
@@ -1807,7 +2115,8 @@ def main() -> int:
                     info[0]["registers"],
                     96 if key.startswith("limb_double") else 128)
         if (row["launches"] + row["launches_mpc"] + row["launches_bls"]
-                + row["launches_mpc64"] + row["launches_star"]) == 0:
+                + row["launches_mpc64"] + row["launches_star"]
+                + row["launches_zkey"]) == 0:
             raise AssertionError(f"no path launched {key}")
         rows.append(row)
     print(json.dumps({"kernels": rows}))

@@ -4,7 +4,8 @@ the counterpart of distributed_groth16_tpu/models/groth16/keys.py.
 `ProvingKey.save` / `load` use exactly the JAX package's .npz format
 (uint32 limb arrays, a meta vector and the raw vk bytes), so a key saved
 by either package loads in the other. `ProvingKey.from_numpy` takes that
-dict of arrays and is what `load` is built on.
+dict of arrays and is what `load` is built on. `ProvingKey.from_zkey`
+reads a snarkjs `.zkey` (frontend/zkey.py).
 """
 
 from __future__ import annotations
@@ -117,6 +118,16 @@ class ProvingKey:
             num_instance=int(meta[1]),
             **queries,
         )
+
+    @staticmethod
+    def from_zkey(path_or_bytes, device=None) -> "ProvingKey":
+        """Import a snarkjs `.zkey` (the reference's real-CRS path,
+        ark-circom/src/zkey.rs:53-60) onto `device` (None: CUDA). Drops
+        the constraint matrices: frontend.zkey.read_zkey keeps them."""
+        from ...frontend.zkey import read_zkey
+
+        pk, _ = read_zkey(path_or_bytes, device)
+        return pk
 
     @staticmethod
     def load(path: str, device=None) -> "ProvingKey":

@@ -156,12 +156,17 @@ def msm_batched(curve: CurvePoints, bases, scalars_std):
     per batch entry above LADDER_MSM_MAX_N points (where the JAX package
     runs one vmapped Pippenger below TREE_MSM_MIN_N, the port's tree takes
     those sizes as msm's does), else one batched ladder and a sequential
-    sum."""
+    sum. The ladder stops after the highest bit any scalar sets (one read
+    of the device): a later step would only double its base, so the
+    result is the same limbs as the JAX package's 256-step ladder."""
     B, n = scalars_std.shape[0], scalars_std.shape[1]
     if n >= TREE_MSM_MIN_N or n > LADDER_MSM_MAX_N:
         return torch.stack([_msm_tree(curve, bases[b], scalars_std[b])
                             for b in range(B)])
-    acc = curve.scalar_mul_bits(bases, scalar_bits(scalars_std))
+    bits = scalar_bits(scalars_std)
+    used = torch.nonzero(bits.flatten(0, -2).any(0))
+    top = int(used.max()) + 1 if used.numel() else 0
+    acc = curve.scalar_mul_bits(bases, bits[..., :top])
     return curve.sum_sequential(acc, axis=1)
 
 

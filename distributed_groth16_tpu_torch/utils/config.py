@@ -32,6 +32,8 @@ KNOBS: dict[str, str] = {
     "DG16_NET_IDLE_TIMEOUT_S": "declare a silent peer dead after this",
     # phase timers
     "DG16_TRACE": "print Start:/End: phase lines",
+    # frontend
+    "DG16_NO_CWASM": "force the pure-Python WASM witness VM",
 }
 
 

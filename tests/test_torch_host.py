@@ -39,6 +39,18 @@ PORT_MODULES = [
     "distributed_groth16_tpu_torch.ops.scalar_pack",
     "distributed_groth16_tpu_torch.frontend.r1cs",
     "distributed_groth16_tpu_torch.frontend.sha256",
+    "distributed_groth16_tpu_torch.frontend.wasm_vm",
+    "distributed_groth16_tpu_torch.frontend.witness_calculator",
+    "distributed_groth16_tpu_torch.frontend.readers",
+    "distributed_groth16_tpu_torch.frontend.builder",
+    "distributed_groth16_tpu_torch.frontend.wasm_cexec",
+    "distributed_groth16_tpu_torch.frontend.ark_serde",
+    "distributed_groth16_tpu_torch.frontend.snarkjs",
+    "distributed_groth16_tpu_torch.frontend.ethereum",
+    "distributed_groth16_tpu_torch.frontend.zkey",
+    "distributed_groth16_tpu_torch.verifier",
+    "distributed_groth16_tpu_torch.verifier.batch",
+    "distributed_groth16_tpu_torch.verifier.executor",
     "distributed_groth16_tpu_torch.models.groth16",
     "distributed_groth16_tpu_torch.models.groth16.keys",
     "distributed_groth16_tpu_torch.models.groth16.qap",
@@ -70,10 +82,13 @@ PORT_MODULES = [
     "distributed_groth16_tpu_torch.examples.launch",
 ]
 COPIES = ["constants", "refmath", "primemath", "glv", "pairing"]
-FRONTEND_COPIES = ["r1cs", "sha256"]
+FRONTEND_COPIES = ["r1cs", "sha256", "wasm_vm", "witness_calculator",
+                   "readers", "builder", "wasm_cexec", "ark_serde", "snarkjs",
+                   "ethereum"]
 MODEL_COPIES = ["reference"]
 UTIL_COPIES = ["serde", "certs"]
 PARALLEL_COPIES = ["faults"]
+VERIFIER_COPIES = ["executor", "__init__"]
 
 
 def _forbidden(name: str) -> bool:
@@ -99,6 +114,8 @@ def test_importing_the_port_loads_no_jax():
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout.split()
     assert "distributed_groth16_tpu_torch.models.groth16.prove" in out
+    assert "distributed_groth16_tpu_torch.frontend.zkey" in out
+    assert "distributed_groth16_tpu_torch.verifier.batch" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -128,8 +145,8 @@ def test_source_scan_covers_every_port_module():
 def test_net_config_matches_the_jax_package(monkeypatch):
     """The port's NetConfig has the JAX package's seven fields, with the
     same types and defaults, and from_env() reads the same DG16_NET_*
-    overrides into the same values; the knobs it reads are declared with
-    the JAX package's text."""
+    overrides into the same values; the knobs the port reads are declared
+    with the JAX package's text."""
     import dataclasses
 
     from distributed_groth16_tpu.utils import config as ref
@@ -147,7 +164,8 @@ def test_net_config_matches_the_jax_package(monkeypatch):
     for f in fields:
         assert (f.type, f.default) == ref_fields[f.name], f.name
     assert port.KNOBS == {k: v for k, v in ref.KNOBS.items()
-                          if k.startswith("DG16_NET_") or k == "DG16_TRACE"}
+                          if k.startswith("DG16_NET_")
+                          or k in ("DG16_TRACE", "DG16_NO_CWASM")}
     assert dataclasses.asdict(port.NetConfig.from_env()) == \
         dataclasses.asdict(ref.NetConfig.from_env())
     overrides = {"DG16_NET_OP_TIMEOUT_S": "7.5",
@@ -165,6 +183,11 @@ def test_net_config_matches_the_jax_package(monkeypatch):
                    "connect_base_delay_s": 0.25, "connect_max_delay_s": 2.0,
                    "connect_jitter": 0.0, "heartbeat_interval_s": -1.0,
                    "idle_timeout_s": 42.0}
+    # the witness calculator's engine switch
+    assert port.env_flag("DG16_NO_CWASM") is False
+    monkeypatch.setenv("DG16_NO_CWASM", "1")
+    assert port.env_flag("DG16_NO_CWASM") is ref.env_flag("DG16_NO_CWASM")
+    assert port.env_flag("DG16_NO_CWASM") is True
 
 
 def _code_of(path: pathlib.Path) -> str:
@@ -172,11 +195,12 @@ def _code_of(path: pathlib.Path) -> str:
 
 
 @pytest.mark.parametrize("mod", COPIES + FRONTEND_COPIES + MODEL_COPIES
-                         + UTIL_COPIES + PARALLEL_COPIES)
+                         + UTIL_COPIES + PARALLEL_COPIES + VERIFIER_COPIES)
 def test_host_module_is_an_exact_copy(mod):
     sub = ("ops" if mod in COPIES else "frontend" if mod in FRONTEND_COPIES
            else "utils" if mod in UTIL_COPIES
-           else "parallel" if mod in PARALLEL_COPIES else "models/groth16")
+           else "parallel" if mod in PARALLEL_COPIES
+           else "verifier" if mod in VERIFIER_COPIES else "models/groth16")
     ref = ROOT / "distributed_groth16_tpu" / sub / f"{mod}.py"
     assert _code_of(PORT / sub / f"{mod}.py") == _code_of(ref)
     assert (PORT / sub / f"{mod}.py").read_bytes() == ref.read_bytes()
@@ -265,22 +289,31 @@ def test_setup_without_device_raises_before_any_cpu_work(monkeypatch):
     assert ran == []
 
 
-@pytest.mark.parametrize("entry", ["encode", "load", "compile", "scalars"])
+@pytest.mark.parametrize("entry", ["encode", "load", "compile", "scalars",
+                                   "zkey", "verifier"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     _no_card()
-    from distributed_groth16_tpu_torch.frontend.r1cs import mult_chain_circuit
+    from distributed_groth16_tpu_torch.frontend.r1cs import (
+        R1CS, mult_chain_circuit,
+    )
+    from distributed_groth16_tpu_torch.frontend.zkey import write_zkey
     from distributed_groth16_tpu_torch.models.groth16 import (
         CompiledR1CS, ProvingKey,
     )
     from distributed_groth16_tpu_torch.ops.field import fr
     from distributed_groth16_tpu_torch.ops.msm import encode_scalars_std
+    from distributed_groth16_tpu_torch.verifier import PreparedVerifyingKey
 
     r1cs, _ = mult_chain_circuit(3, 5).finish()
+    empty = R1CS(num_instance=1, num_witness=0, a=[], b=[], c=[])
     calls = {
         "encode": lambda: fr().encode([1, 2, 3]),
         "load": lambda: ProvingKey.load(str(tmp_path / "missing.npz")),
         "compile": lambda: CompiledR1CS(r1cs),
         "scalars": lambda: encode_scalars_std([5, 6]),
+        "zkey": lambda: ProvingKey.from_zkey(write_zkey(_tiny_key(), empty)),
+        "verifier": lambda: PreparedVerifyingKey.prepare(
+            "c", _tiny_key().vk),
     }
     if entry == "load":
         _tiny_key().save(str(tmp_path / "missing.npz"))

@@ -129,6 +129,15 @@ def test_msm_batched_matches_jax(batched_case, monkeypatch, route):
     assert [g1().decode(out[b]) for b in range(B)] == want
     assert want == [rm.G1.msm(pts[b * n : (b + 1) * n], scal[b])
                     for b in range(B)]
+    if route == "ladder":
+        # the ladder stops after the top bit any scalar sets: 41 steps
+        # here, and none for all-zero scalars
+        for small in ([[0, 0], [5, 1 << 40]], [[0, 0], [0, 0]]):
+            got = msm_batched(
+                g1(), g1().encode(pts[:4], CPU).reshape(2, 2, 3, 16),
+                torch.stack([encode_scalars_std(s, CPU) for s in small]))
+            assert [g1().decode(got[b]) for b in range(2)] == [
+                rm.G1.msm(pts[2 * b : 2 * b + 2], small[b]) for b in range(2)]
 
 
 @pytest.mark.parametrize("which, chunks", [("g1", [4, 4, 2]),
