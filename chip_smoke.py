@@ -86,23 +86,48 @@ result line):
      SHA-256 statements of the same circuit proved with the .zkey key at
      distinct r, s and checked by one RLC fold (verify_batch, its
      prepare_inputs MSM on the card), then with one proof made false:
-     the fold false, verify_each naming it, bundles built and checked,
-     and VerifyBatchRunner over four stand-in jobs of 8 proofs, of which
-     only the one holding the false proof fails. Logs the artifacts'
+     the fold false, verify_each naming it among the first 8, bundles
+     built and checked, and VerifyBatchRunner over four stand-in jobs of
+     2 of those 8 proofs, of which only the one holding the false proof
+     fails (8, not all 32: each bisection step pays a launch-bound
+     plain ladder, and the script must stay well inside its time limit).
+     Logs the artifacts'
      bytes and ms, the phase split beside phase 4's key's, and the fold's
      ms split (device prepare_inputs, host fold, pairings) beside single
-     verifies.
+     verifies;
+ 11. the batch and mesh provers, all n = 8 parties (l = 2) on one tensor
+     axis of the card, and the job service below its HTTP layer, on phase
+     4's circuit: (a) 8 distinct SHA-256 statements (phase 10's) proved
+     in ONE batch by prove_batch through build_batch_mesh_prover over the
+     CRS phase 6 packed from the loaded key (one batched stage-1 d_fft,
+     the king's tails once, n * (3B + B) = 256 local tree MSMs in batched
+     launches of kernels 1 and 3, the king's unpacks on kernels 1 and 2),
+     each proof verifying and equal to prove_single's, counters zeroed
+     before and read after; then a batch of 3 (padded to 4); the batch
+     again under the profiler and with its parts probed; (b)
+     mesh_prove_zk at r, s != 0 equal to prove_single(r, s); (c) a
+     CircuitStore in a temporary directory, ProofExecutor + JobQueue +
+     WorkerPool + BatchScheduler(batch_max=4, 500 ms linger) on the card:
+     8 "prove" jobs carrying .wtns bytes DONE in at most 2 batched
+     executions with no BatchFault, each proof equal to prove_single's;
+     then, batching off, one "prove" job (kernels 1, 3 and 4) and one
+     "mpc_prove" job through the per-job funnel, both equal to
+     prove_single's. Logs the batch wall and per-proof time beside phase
+     6's round, the split, device busy ms, peak memory, the jobs' phases
+     and the scheduler's stats.
 
 Output: phase lines, then a {"kernels": [...]} line (launches on the row's
 own path: phase 4 for the 8-word kernels, phase 7 for the 12-word ones;
 launches_mpc, launches_bls and launches_mpc64 on the MPC, BLS and n = 64
 MPC paths; launches_star, summed over the ranks of phase 9's SHA-256
-star; launches_zkey over phase 10; ms, the device time of one launch at
-the row's shape;
-ms_per_proof, ms_per_mpc_proof, ms_per_bls_path and ms_per_mpc64_proof,
-the summed device time in one warm proof, one MPC proof (pack + round),
-each BLS path and one n = 64 MPC proof, from torch.profiler's kernel
-records; kernels 1 and 2 also at the lane ladder's widths, at_lane and
+star; launches_zkey over phase 10; launches_batch over phase 11's batch
+of 8 (kernels 1-3), launches_service_prove over its per-job prove job
+(kernels 1, 3 and 4); ms, the device time of one launch at the row's
+shape;
+ms_per_proof, ms_per_mpc_proof, ms_per_bls_path, ms_per_mpc64_proof and
+ms_per_batch, the summed device time in one warm proof, one MPC proof
+(pack + round), each BLS path, one n = 64 MPC proof and phase 11's batch
+of 8, from torch.profiler's kernel records; kernels 1 and 2 also at the lane ladder's widths, at_lane and
 at_lane_unpack;
 ptxas' registers and spills), the nvidia-smi name/power-limit line, and
 last {"ok": true, "device": {...}}.
@@ -746,12 +771,16 @@ def sync(dev) -> None:
 
 
 @contextmanager
-def probes(dev, targets: dict):
+def probes(dev, targets: dict, peaks: dict | None = None):
     """While active, each callable named in `targets` (label -> (owner,
     attribute)) adds the wall ms of its calls, device drained before and
     after, to the yielded dict under its label, and its number of calls
     under label + "_calls". The targets must not call one another, so the
-    totals are disjoint."""
+    totals are disjoint. With `peaks` (on a card), each label also gets
+    the most device memory one of its calls allocated above what was
+    allocated when it began (bytes)."""
+    import torch
+
     totals = {label: 0.0 for label in targets}
     totals.update({f"{label}_calls": 0 for label in targets})
     saved = []
@@ -760,6 +789,9 @@ def probes(dev, targets: dict):
 
         def wrapped(*a, _fn=fn, _label=label, **kw):
             sync(dev)
+            if peaks is not None:
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
             try:
                 return _fn(*a, **kw)
@@ -767,6 +799,10 @@ def probes(dev, targets: dict):
                 sync(dev)
                 totals[_label] += (time.perf_counter() - t0) * 1e3
                 totals[f"{_label}_calls"] += 1
+                if peaks is not None:
+                    peaks[_label] = max(
+                        peaks.get(_label, 0),
+                        torch.cuda.max_memory_allocated(dev) - base)
 
         saved.append((owner, name, fn))
         setattr(owner, name, wrapped)
@@ -1748,7 +1784,7 @@ def stand_in_job(circuit_id, items):
 
 
 def phase_zkey(dev, ctx, statement=fold_statement, n_fold=32, jobs=4,
-               tampered=13):
+               tampered=5, n_each=8):
     """Phase 10: a circom/snarkjs user's path on phase 4's circuit and key.
     (a) .r1cs, .wtns and .zkey written to a temporary directory and read
     back (ProvingKey.from_zkey onto `dev`), each equal to the original;
@@ -1759,9 +1795,11 @@ def phase_zkey(dev, ctx, statement=fold_statement, n_fold=32, jobs=4,
     (d) n_fold statements (`statement(i)`: r1cs, witness, publics) proved
     with the .zkey key at distinct r, s != 0 and checked by one RLC fold
     (verify_batch), then with proof `tampered` made false: verify_batch
-    false, verify_each naming it, bundles, and VerifyBatchRunner over
-    `jobs` stand-in jobs, of which only the one holding the false proof
-    fails. Counters zeroed before, read after. Returns the launches."""
+    false, verify_each naming it among the first n_each proofs, bundles,
+    and VerifyBatchRunner over `jobs` stand-in jobs sharing those n_each
+    proofs, of which only the one holding the false proof fails (n_each
+    cuts the bisections' depth: both pay one launch-bound plain ladder a
+    fold). Counters zeroed before, read after. Returns the launches."""
     import numpy as np
 
     from distributed_groth16_tpu_torch.frontend import (
@@ -1948,7 +1986,10 @@ def phase_zkey(dev, ctx, statement=fold_statement, n_fold=32, jobs=4,
     bad[tampered] = Proof(a=p.a, b=p.b, c=rm.G1.add(p.c, G1_GENERATOR))
     if timed("fold_tampered", verify_batch, pvk, bad, publics) is not False:
         raise AssertionError("the fold with a false proof is true")
-    verdicts = timed("verify_each", verify_each, pvk, bad, publics)
+    n_each = min(n_each, n_fold)
+    assert tampered < n_each
+    verdicts = timed("verify_each", verify_each, pvk, bad[:n_each],
+                     publics[:n_each])
     if [i for i, v in enumerate(verdicts) if not v] != [tampered]:
         raise AssertionError(f"verify_each names {verdicts}")
     bundle = timed("build_bundle", build_bundle, pvk, proofs, publics)
@@ -1960,7 +2001,7 @@ def phase_zkey(dev, ctx, statement=fold_statement, n_fold=32, jobs=4,
         raise AssertionError("bundle check wrong")
     # the job runner over stand-in jobs, its executor sharing the cache
     store = types.SimpleNamespace(load=lambda c: (None, pk))
-    per = n_fold // jobs
+    per = n_each // jobs
     items = list(zip(bad, publics))
     batch = [stand_in_job(cid, items[j * per : (j + 1) * per])
              for j in range(jobs)]
@@ -1981,7 +2022,8 @@ def phase_zkey(dev, ctx, statement=fold_statement, n_fold=32, jobs=4,
     single = sorted(singles)
     median = (single[1] + single[2]) / 2
     log("zkey fold: " + json.dumps(dict(
-        proofs=n_fold, witness_s=t_witness, prove_s=t_prove,
+        proofs=n_fold, each_and_runner_proofs=n_each, witness_s=t_witness,
+        prove_s=t_prove,
         fold_ms=ms["fold"], fold_split_ms={k: fold_ms[k] for k in split},
         fold_tampered_ms=ms["fold_tampered"],
         verify_each_ms=ms["verify_each"], single_verify_ms=singles,
@@ -1996,6 +2038,332 @@ def phase_zkey(dev, ctx, statement=fold_statement, n_fold=32, jobs=4,
         "fold is true, false with one false proof, whose index verify_each "
         "and the job runner name")
     return launches
+
+
+def run_service(jobs, store, dev, batch_max=1, crs_cache=None):
+    """Drive the port's job service as an API server would, below its HTTP
+    layer: a JobQueue drained by a WorkerPool and, when batch_max > 1, a
+    BatchScheduler placing batches on the card (500 ms linger). Submits
+    `jobs`, waits (at most 10 minutes) for every one to reach a terminal
+    state, stops the pool. Returns the scheduler (None with batching off)
+    and the executor."""
+    import asyncio
+
+    from distributed_groth16_tpu_torch.scheduler import BatchScheduler
+    from distributed_groth16_tpu_torch.service import (
+        JobQueue, ProofExecutor, WorkerPool,
+    )
+    from distributed_groth16_tpu_torch.utils.config import SchedulerConfig
+
+    async def main():
+        q = JobQueue(bound=64, workers=2)
+        ex = ProofExecutor(store, crs_cache=crs_cache, device=dev)
+        sched = None
+        if batch_max > 1:
+            sched = BatchScheduler(
+                ex, q, SchedulerConfig(batch_max=batch_max,
+                                       batch_linger_ms=500.0),
+                devices=[dev],
+            )
+        pool = WorkerPool(q, ex, workers=2, scheduler=sched)
+        await pool.start()
+        try:
+            for job in jobs:
+                q.submit(job)
+            await asyncio.wait_for(
+                asyncio.gather(*(job.wait() for job in jobs)), 600.0
+            )
+        finally:
+            await pool.stop()
+        return sched, ex
+
+    return asyncio.run(main())
+
+
+@contextmanager
+def counted_batches():
+    """While active, every BatchProver.run_batch call is counted and its
+    outcomes kept: yields {"executions", "sizes", "faults"}, faults being
+    the BatchFault outcomes (a batch-wide failure the scheduler would
+    bisect)."""
+    from distributed_groth16_tpu_torch.scheduler import batch_prover
+
+    seen = {"executions": 0, "sizes": [], "faults": []}
+    run = batch_prover.BatchProver.run_batch
+
+    def counted(self, jobs, key, mesh):
+        out = run(self, jobs, key, mesh)
+        seen["executions"] += 1
+        seen["sizes"].append(len(jobs))
+        seen["faults"] += [o for _, o in out
+                           if isinstance(o, batch_prover.BatchFault)]
+        return out
+
+    batch_prover.BatchProver.run_batch = counted
+    try:
+        yield seen
+    finally:
+        batch_prover.BatchProver.run_batch = run
+
+
+def phase_batch(dev, ctx, statement=fold_statement, B=8, small=3,
+                n_jobs=8, batch_max=4):
+    """Phase 11: the batch and mesh provers with the n = 8 parties on one
+    tensor axis of the card, and the job service below the HTTP layer, on
+    phase 4's circuit.
+    (a) B distinct statements (`statement(i)`: r1cs, witness, publics)
+    proved by prove_batch through build_batch_mesh_prover over the CRS
+    packed once from phase 4's loaded key (phase 6's pack): each proof
+    verifies and equals prove_single's; then a batch of `small` (padded
+    to a power of two). Counters zeroed before the B-batch and read after
+    (launches_batch); the same batch again under the profiler (kernel
+    device ms, busy ms) and with its parts probed (the split).
+    (b) mesh_prove_zk at r, s != 0 equal to prove_single(r, s).
+    (c) the service: a CircuitStore in a temporary directory holding the
+    circuit (setup on the card), ProofExecutor + JobQueue + WorkerPool +
+    BatchScheduler(batch_max, 500 ms linger) on the card: n_jobs "prove"
+    jobs carrying .wtns bytes all DONE in at most ceil(n_jobs /
+    batch_max) batched executions with no BatchFault, each proof equal to
+    prove_single's; then, batching off, one "prove" job (counters zeroed
+    before it: kernel 4's launches) and one "mpc_prove" job through the
+    per-job funnel, both equal to prove_single's.
+    Returns the launch counts of (a)'s B-batch and of (c)'s per-job prove."""
+    import numpy as np
+    import torch
+
+    from distributed_groth16_tpu_torch.api.store import CircuitStore
+    from distributed_groth16_tpu_torch.examples.nonlocal_sha256 import (
+        proof_bytes,
+    )
+    from distributed_groth16_tpu_torch.frontend.ark_serde import (
+        proof_from_bytes,
+    )
+    from distributed_groth16_tpu_torch.frontend.readers import (
+        write_r1cs, write_wtns,
+    )
+    from distributed_groth16_tpu_torch.models.groth16 import (
+        QAP, CompiledR1CS, ProvingKey, pack_from_witness, pack_proving_key,
+        prove_single, verify,
+    )
+    from distributed_groth16_tpu_torch.models.groth16 import mesh_prover
+    from distributed_groth16_tpu_torch.ops import _cuda
+    from distributed_groth16_tpu_torch.ops import msm as tmsm
+    from distributed_groth16_tpu_torch.ops.constants import R
+    from distributed_groth16_tpu_torch.ops.field import fr
+    from distributed_groth16_tpu_torch.parallel import mesh as pmesh
+    from distributed_groth16_tpu_torch.parallel.pss import (
+        PackedSharingParams, pss,
+    )
+    from distributed_groth16_tpu_torch.scheduler import batch_prover
+    from distributed_groth16_tpu_torch.service import JobState, ProofJob
+
+    assert small <= B and n_jobs <= B
+    pk, comp, r1cs = ctx["pk"], ctx["comp"], ctx["r1cs"]
+    pp = pss(2)
+    mesh = pmesh.make_mesh(pp.n, dev)
+    t0 = time.perf_counter()
+    stmts = [statement(i) for i in range(B)]
+    for s_r1cs, _, _ in stmts:
+        if (s_r1cs.a, s_r1cs.b, s_r1cs.c) != (r1cs.a, r1cs.b, r1cs.c):
+            raise AssertionError("a statement is not phase 4's circuit")
+    z_monts = [fr().encode(z, dev) for _, z, _ in stmts]
+    t_witness = time.perf_counter() - t0
+    crs = ctx.get("point_crs")
+    if crs is None:  # phase 6 did not run: pack the loaded key here
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "pk.npz")
+            pk.save(path)
+            crs = pack_proving_key(ProvingKey.load(path, device=dev), pp)
+    m = pk.domain_size
+    cmax = max(int(crs[0].s.shape[0]), int(crs[0].w.shape[0]),
+               int(crs[0].u.shape[0]))
+    log(f"batch path: m={m} l={pp.l} n={pp.n} B={B}, local tree MSMs per "
+        f"batch n*(3B+B)={pp.n * 4 * B} at {cmax} points, witnesses "
+        f"{t_witness:.1f} s")
+
+    # (a) B proofs in one batch, counters zeroed just before
+    prover = mesh_prover.build_batch_mesh_prover(pp, m, mesh, B)
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    proofs = batch_prover.prove_batch(pk, comp, pp, mesh, crs, z_monts[:B],
+                                      prover=prover)
+    sync(dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    singles, t_single = [], []
+    for zm in z_monts[:B]:
+        sync(dev)
+        t0 = time.perf_counter()
+        singles.append(prove_single(pk, comp, zm))
+        sync(dev)
+        t_single.append((time.perf_counter() - t0) * 1e3)
+    for j, (proof, want) in enumerate(zip(proofs, singles)):
+        if proof_bytes(proof) != proof_bytes(want):
+            raise AssertionError(f"batch proof {j} differs from prove_single's")
+        if not verify(pk.vk, proof, stmts[j][2]):
+            raise AssertionError(f"batch proof {j} does not verify")
+    if len({proof_bytes(p) for p in proofs}) != B:
+        raise AssertionError("two jobs of the batch got one proof")
+    if dev.type == "cuda":
+        for k in ("limb_add_g1", "limb_add_g2", "limb_double_g1",
+                  "limb_double_g2", "limb_horner_g1", "limb_horner_g2"):
+            if launches[k] == 0:
+                raise AssertionError(f"the batch path never launched {k}")
+    t0 = time.perf_counter()
+    small_proofs = batch_prover.prove_batch(pk, comp, pp, mesh, crs,
+                                            z_monts[:small])
+    sync(dev)
+    t_small = (time.perf_counter() - t0) * 1e3
+    if len(small_proofs) != small or any(
+            proof_bytes(p) != proof_bytes(w)
+            for p, w in zip(small_proofs, singles)):
+        raise AssertionError(f"the batch of {small} differs from prove_single")
+    log("batch path (a): " + json.dumps(dict(
+        batch=B, wall_ms=wall, per_proof_ms=wall / B,
+        prove_single_warm_ms=t_single,
+        mpc_round_ms_phase6=ctx.get("mpc_round", {}).get("round"),
+        small=small, padded_to=batch_prover._next_pow2(small),
+        small_wall_ms=t_small, peak_bytes=peak, launches_batch=launches)))
+
+    # the same batch under the profiler: kernel device ms and busy time
+    per_kernel = {k: 0.0 for k in _cuda.KERNELS}
+    if dev.type == "cuda":
+        with kernel_trace(host_ops=False) as tr:
+            t0 = time.perf_counter()
+            again = batch_prover.prove_batch(pk, comp, pp, mesh, crs,
+                                             z_monts[:B], prover=prover)
+            sync(dev)
+            tr["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        if not tr["per_kernel"]:
+            raise AssertionError("torch.profiler recorded no kernel")
+        per_kernel.update(tr["per_kernel"])
+        if [proof_bytes(p) for p in again] != [proof_bytes(p) for p in proofs]:
+            raise AssertionError("the profiled batch gave other proofs")
+        log("batch path kernel device ms per batch: " + json.dumps(dict(
+            method="torch.profiler", per_kernel=per_kernel,
+            total=sum(per_kernel.values()), by_columns=tr["by_columns"],
+            device_busy_ms=tr["busy_ms"], wall_ms=tr["wall_ms"],
+            busy_share=tr["busy_ms"] / tr["wall_ms"])))
+
+    # and with its parts probed (the device drained around each call; on
+    # a card each part's own peak above what it found allocated)
+    peaks = {} if dev.type == "cuda" else None
+    with probes(dev, {
+        "qap": (CompiledR1CS, "qap"),
+        "qap_pss": (QAP, "pss"),
+        "witness_packs": (batch_prover, "pack_from_witness"),
+        "stage1_dfft": (pmesh, "_fft1_local"),
+        "king_tail": (pmesh, "_king_tail_array"),
+        "king_clear": (pmesh, "_king_clear_array"),
+        "king_combine_h": (mesh_prover, "king_combine_h"),
+        "local_tree_msms": (tmsm, "msm_batched"),
+        "king_unpackexp": (PackedSharingParams, "unpackexp"),
+        "demux": (batch_prover, "reassemble_proof"),
+    }, peaks) as split:
+        t0 = time.perf_counter()
+        batch_prover.prove_batch(pk, comp, pp, mesh, crs, z_monts[:B],
+                                 prover=prover)
+        sync(dev)
+        split["wall"] = (time.perf_counter() - t0) * 1e3
+    log("batch path split ms: " + json.dumps(split))
+    if peaks is not None:
+        log("batch path peak bytes by part: " + json.dumps(peaks))
+
+    # (b) the zero-knowledge mesh proof
+    rng = np.random.default_rng(2026)
+    r = int.from_bytes(rng.bytes(40), "little") % R
+    s = int.from_bytes(rng.bytes(40), "little") % R
+    zm = ctx["z_mont"]
+    qs = comp.qap(zm).pss(pp)
+    inp = mesh_prover.MeshProverInputs(
+        qap_a=torch.stack([q.a for q in qs]),
+        qap_b=torch.stack([q.b for q in qs]),
+        qap_c=torch.stack([q.c for q in qs]),
+        a_share=pack_from_witness(pp, zm[1:]),
+        ax_share=pack_from_witness(pp, zm[r1cs.num_instance:]),
+        **{f: torch.stack([getattr(c, f) for c in crs])
+           for f in ("s", "u", "v", "w", "h")},
+    )
+    t0 = time.perf_counter()
+    zk = mesh_prover.mesh_prove_zk(pp, m, mesh, inp, pk, r, s)
+    t_zk = (time.perf_counter() - t0) * 1e3
+    if proof_bytes(zk) != proof_bytes(prove_single(pk, comp, zm, r=r, s=s)):
+        raise AssertionError("mesh_prove_zk differs from prove_single(r, s)")
+    if not verify(pk.vk, zk, ctx["pubs"]):
+        raise AssertionError("mesh_prove_zk's proof does not verify")
+    log(f"batch path (b): mesh_prove_zk at r, s != 0 equals "
+        f"prove_single(r, s), {t_zk:.1f} ms")
+
+    # (c) the service on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CircuitStore(tmp, device=dev)
+        t0 = time.perf_counter()
+        cid = store.save_circuit("sha256", write_r1cs(r1cs), b"")
+        t_save = (time.perf_counter() - t0) * 1e3
+        wtns = [write_wtns(z) for _, z, _ in stmts[:n_jobs]]
+        jobs = [ProofJob(kind="prove", circuit_id=cid,
+                         fields={"witness_file": w}, l=pp.l) for w in wtns]
+        with counted_batches() as seen:
+            t0 = time.perf_counter()
+            sched, ex = run_service(jobs, store, dev, batch_max=batch_max)
+            t_jobs = (time.perf_counter() - t0) * 1e3
+        stats = sched.stats()
+        bound = -(-n_jobs // batch_max)
+        for j, job in enumerate(jobs):
+            if job.state is not JobState.DONE:
+                raise AssertionError(f"service job {j}: {job.error}")
+            got = proof_from_bytes(bytes(job.result["proof"]))
+            if proof_bytes(got) != proof_bytes(singles[j]):
+                raise AssertionError(f"service job {j} differs from "
+                                     "prove_single's")
+        if seen["faults"] or stats["jobsPoisoned"]:
+            raise AssertionError(f"batch faults: {seen['faults']}")
+        if seen["executions"] > bound or stats["batchesDispatched"] > bound:
+            raise AssertionError(f"{seen['executions']} batched executions "
+                                 f"for {n_jobs} jobs (at most {bound})")
+        log("batch service: " + json.dumps(dict(
+            jobs=n_jobs, batch_max=batch_max, save_circuit_ms=t_save,
+            all_jobs_ms=t_jobs, executions=seen["executions"],
+            sizes=seen["sizes"], scheduler=stats,
+            phases=[job.result["phases"] for job in jobs],
+            device_memory=[job.to_dict()["metrics"].get("deviceMemory")
+                           for job in jobs[:1]])))
+
+        # batching off: the per-job funnel, a prove job then an mpc_prove
+        one = ProofJob(kind="prove", circuit_id=cid, l=pp.l,
+                       fields={"witness_file": write_wtns(ctx["z"])})
+        for k in _cuda.KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        run_service([one], store, dev, crs_cache=ex.crs_cache)
+        t_one = (time.perf_counter() - t0) * 1e3
+        launches_job = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        mpc = ProofJob(kind="mpc_prove", circuit_id=cid, l=pp.l,
+                       fields={"witness_file": write_wtns(ctx["z"])})
+        t0 = time.perf_counter()
+        run_service([mpc], store, dev, crs_cache=ex.crs_cache)
+        t_mpc = (time.perf_counter() - t0) * 1e3
+    for job in (one, mpc):
+        if job.state is not JobState.DONE:
+            raise AssertionError(f"per-job {job.kind}: {job.error}")
+        got = proof_from_bytes(bytes(job.result["proof"]))
+        if proof_bytes(got) != proof_bytes(ctx["proof"]):
+            raise AssertionError(f"per-job {job.kind} differs from "
+                                 "prove_single's")
+    if dev.type == "cuda" and launches_job["ntt_small"] == 0:
+        raise AssertionError("the per-job prove never launched kernel 4")
+    log("batch service per-job funnel: " + json.dumps(dict(
+        prove_ms=t_one, prove_phases=one.result["phases"],
+        mpc_prove_ms=t_mpc, mpc_prove_phases=mpc.result["phases"],
+        launches_prove_job=launches_job)))
+    log(f"batch: {B} + {small} batched proofs, the zk mesh proof and "
+        f"{n_jobs + 2} service jobs equal prove_single's")
+    return launches, launches_job, per_kernel
 
 
 def main() -> int:
@@ -2062,6 +2430,8 @@ def main() -> int:
     lap("phase 9")
     launches_zkey = phase_zkey(dev, ctx)
     lap("phase 10")
+    launches_batch, launches_job, per_batch_ms = phase_batch(dev, ctx)
+    lap("phase 11")
 
     # every kernel launches on at least one path: kernel 2 (double) only on
     # the MPC and BLS paths' ladders, kernel 4 (ntt_small) only on the main
@@ -2086,6 +2456,8 @@ def main() -> int:
             launches_mpc64=launches_mpc64[key],
             launches_star=launches_star[key],
             launches_zkey=launches_zkey[key],
+            launches_batch=launches_batch[key],
+            launches_service_prove=launches_job[key],
             launches_by_bls_path={p: r["launches"].get(key, 0)
                                   for p, r in bls.items()},
             max_abs_err=err, match=err == 0, ms=e["ms"], kernel_ms=e["ms"],
@@ -2094,6 +2466,7 @@ def main() -> int:
             call_ms=e["call_ms"], ms_per_proof=per_proof_ms[key],
             ms_per_mpc_proof=per_mpc_ms[key],
             ms_per_mpc64_proof=per_mpc64_ms[key],
+            ms_per_batch=per_batch_ms[key],
             ms_per_bls_path={p: r["device_ms"].get(key, 0.0)
                              for p, r in bls.items()},
         )
@@ -2116,7 +2489,8 @@ def main() -> int:
                     96 if key.startswith("limb_double") else 128)
         if (row["launches"] + row["launches_mpc"] + row["launches_bls"]
                 + row["launches_mpc64"] + row["launches_star"]
-                + row["launches_zkey"]) == 0:
+                + row["launches_zkey"] + row["launches_batch"]
+                + row["launches_service_prove"]) == 0:
             raise AssertionError(f"no path launched {key}")
         rows.append(row)
     print(json.dumps({"kernels": rows}))

@@ -7,13 +7,24 @@ layout and names so each module has an obvious counterpart:
     ops/       field, curve and limb-major arithmetic, NTT, MSM, the
                fixed-scalar ladder; the four hand-written CUDA kernels
                (csrc/) and the module that compiles them (ops/_cuda.py)
-    parallel/  the n-party star (in-process LocalSimNet), packed secret
-               sharing, the in-exponent point NTT, d_fft, d_msm, deg_red
-               and d_pp
-    models/    groth16 setup / prove_single / CRS packing and the MPC
-               prover (distributed_prove_party) / verify
-    frontend/  R1CS builder and the SHA-256 circuit
-    utils/     the transport's NetConfig
+    parallel/  the n-party star (in-process LocalSimNet, ProdNet over
+               sockets), packed secret sharing, the in-exponent point
+               NTT, d_fft, d_msm, deg_red and d_pp, and the mesh that
+               holds all n parties on one axis of one card's tensors
+    models/    groth16 setup / prove_single / CRS packing, the MPC prover
+               (distributed_prove_party), the mesh and batch provers /
+               verify
+    frontend/  R1CS builder, the SHA-256 circuit, the circom/snarkjs
+               readers, writers and codecs
+    verifier/  batched (RLC) verification and its job runners
+    service/   the job service: jobs, queue, CRS cache, journal, SLO,
+               the worker pool and its proof executor
+    scheduler/ the batching scheduler: bucketer, placement over the
+               cards, the batch prover
+    api/       the circuit store (the HTTP server comes later)
+    telemetry/ metrics, spans, the log spine, flight recorder, device
+               memory and transfer accounting
+    utils/     the DG16_* knobs and configs, serde, certs, phase timers
 
 Rules the port keeps:
 

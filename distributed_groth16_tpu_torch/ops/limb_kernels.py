@@ -306,15 +306,16 @@ class LimbGroup:
 
     def plain_horner(self, s, c: int):
         """Plain version of kernel 3: acc = sum_w 2^(c*w) * S_w over the W
-        columns of s (ROWS, W), LSB window first -> (ROWS, 1)."""
-        x = s.long()
-        W = x.shape[1]
-        acc = x[:, W - 1 : W]
+        columns of s (ROWS, ..., W), LSB window first -> (ROWS, ..., 1),
+        every leading column independent."""
+        x = s.long().reshape(self.ROWS, -1, s.shape[-1])
+        W = x.shape[-1]
+        acc = x[:, :, W - 1]
         for w in range(W - 2, -1, -1):
             for _ in range(c):
                 acc = self.double_body(acc)
-            acc = self.add_body(acc, x[:, w : w + 1])
-        return acc.to(torch.int32)
+            acc = self.add_body(acc, x[:, :, w])
+        return acc.to(torch.int32).reshape(s.shape[:-1] + (1,))
 
     # -- kernel wrappers ----------------------------------------------------
 
@@ -377,12 +378,17 @@ class LimbGroup:
 
     def horner(self, s, c: int):
         """Window sums s (ROWS, W), LSB window first -> one point column:
-        kernel 3 on CUDA, plain version on CPU."""
-        W = s.shape[1]
+        kernel 3 on CUDA, plain version on CPU. s (ROWS, E, W) -> (ROWS,
+        E, 1): E independent sums, one kernel-3 launch each."""
+        W = s.shape[-1]
         if W == 1:
             return s
         if s.device.type == "cpu":
             return self.plain_horner(s, c)
+        if s.ndim == 3:
+            return torch.stack(
+                [self.horner(s[:, e], c) for e in range(s.shape[1])], dim=1
+            )
         _cuda.check_cuda_int32("horner s", s)
         if W > self.HORNER_MAX_W or c < 1:
             raise ValueError(
@@ -488,101 +494,146 @@ def _digits(scalars_std, c: int):
 
 
 def msm_tree(points_rm, scalars_std, c: int | None = None,
-             window_group: int | None = None, group: LimbGroup = None):
-    """sum_i scalars[i] * points[i] on the limb-major path.
+             group: LimbGroup = None):
+    """sum_i scalars[i] * points[i] on the limb-major path: one entry of
+    msm_tree_batched.
 
     points_rm: (n, 3, nl) G1 / (n, 3, 2, nl) G2 projective row-major
     (Montgomery, canonical); `group` is their LimbGroup (None: BN254's,
     from the rank); scalars_std: (n, k) standard-form limbs, k*16 at
     least the scalar bits. Returns the (3, ...) row-major canonical
-    projective sum.
+    projective sum."""
+    g = group or (lg2() if points_rm.ndim == 4 else lg1())
+    return msm_tree_batched(points_rm[None], scalars_std[None], c=c,
+                            group=g)[0]
 
-    Per window: points are ordered by digit (stable argsort), reduced by a
-    pairwise sum tree (n-1 adds, every level one kernel-1 launch over all
-    windows at once), and the B-1 bucket prefix sums C_j are read off the
-    tree Fenwick-style: C(pos) = sum_{d: bit d of pos} level_d[(pos>>d)-1].
-    sum_b b*S_b = sum_j (total - C_j) then takes one batched neg + add and
-    a small tree sum; the windows combine in one Horner launch (kernel 3).
+
+# points (entries x padded length) a batched tree reduces at once: its sum
+# tree keeps every level, 2 x 48 int32 rows a G1 point column
+TREE_BATCH_POINTS = 1 << 18
+
+
+def msm_tree_batched(points_rm, scalars_std, bases_of=None,
+                     c: int | None = None, group: LimbGroup = None):
+    """E MSMs of n points each on the limb-major path:
+    out[e] = sum_i scalars[e, i] * points[bases_of[e], i].
+
+    points_rm: (P, n) + row-major point shape, P point sets (Montgomery,
+    canonical); scalars_std: (E, n, k) standard-form limbs; bases_of: (E,)
+    indices into the P sets (None: P == E, entry e on set e), so one set
+    shared by many entries is gathered in place, never copied per entry;
+    `group` as for msm_tree (required for a batch). Returns (E,) +
+    row-major point shape, canonical projective.
+
+    Per (entry, window) row: points are ordered by digit (stable argsort),
+    reduced by a pairwise sum tree (n-1 adds, every level one kernel-1
+    launch over all rows at once), and the B-1 bucket prefix sums C_j are
+    read off the tree Fenwick-style: C(pos) = sum_{d: bit d of pos}
+    level_d[(pos>>d)-1]. sum_b b*S_b = sum_j (total - C_j) then takes one
+    batched neg + add and a small tree sum; each entry's windows combine
+    in one Horner launch (kernel 3). Entries go in groups of at most
+    TREE_BATCH_POINTS padded points; one entry above 2^17 points goes in
+    groups of windows.
     """
-    n = points_rm.shape[0]
+    P, n = points_rm.shape[:2]
+    E = scalars_std.shape[0]
+    if bases_of is None:
+        assert P == E, "bases_of is needed when entries share point sets"
+        bases_of = torch.arange(E, device=points_rm.device)
     if c is None:
         # the Fenwick/combine stages scale with B = 2^c per window: a small
         # MSM with c=8 would spend everything on 255 empty buckets
         c = 8 if n >= 4096 else 4
-    g = group or (lg2() if points_rm.ndim == 4 else lg1())
+    g = group or (lg2() if points_rm.ndim == 5 else lg1())
     dev = points_rm.device
     RR = g.ROWS
-    W_all = scalars_std.shape[1] * LIMB_BITS // c
+    W_all = scalars_std.shape[2] * LIMB_BITS // c
     B = 1 << c
     npad = 1 << max(1, (n - 1).bit_length())
-    lm = g.from_rowmajor(points_rm)
-    digits = _digits(scalars_std, c)  # (W, n)
+    lm = g.from_rowmajor(points_rm.reshape((P * n,) + points_rm.shape[2:]))
+    lm = lm.reshape(RR, P, n)
+    digits = _digits(scalars_std.reshape(E * n, -1), c)  # (W, E*n)
+    digits = digits.reshape(W_all, E, n).transpose(0, 1)  # (E, W, n)
     if npad != n:
-        lm = torch.cat([lm, g.infinity(npad - n, dev)], dim=1)
+        lm = torch.cat(
+            [lm, g.infinity(P * (npad - n), dev).reshape(RR, P, npad - n)],
+            dim=2,
+        )
         digits = torch.nn.functional.pad(digits, (0, npad - n))
+    lm = lm.reshape(RR, P * npad)
+    first = (bases_of.to(dev) * npad)[:, None, None]  # (E, 1, 1)
     levels_n = npad.bit_length() - 1
-    if window_group is None:
-        window_group = W_all if npad <= (1 << 17) else max(1, 8 * 48 // RR)
+    if npad <= (1 << 17):
+        entry_group, window_group = max(1, TREE_BATCH_POINTS // npad), W_all
+    else:
+        entry_group, window_group = 1, max(1, 8 * 48 // RR)
     inf = torch.as_tensor(g.inf_col, device=dev)  # (RR, 1)
     bucket_ids = torch.arange(B - 1, device=dev)
 
-    sums = []
-    for w0 in range(0, W_all, window_group):
-        dg = digits[w0 : w0 + window_group]  # (Wg, npad)
-        Wg = dg.shape[0]
-        order = torch.argsort(dg, dim=-1, stable=True)
-        sortd = torch.gather(dg, -1, order)
-        ends = torch.searchsorted(
-            sortd, bucket_ids.expand(Wg, B - 1).contiguous(), right=True
-        )  # (Wg, B-1)
-        x = lm[:, order.reshape(-1)].reshape(RR, Wg, npad)
+    entry_sums = []
+    for e0 in range(0, E, entry_group):
+        window_sums = []
+        for w0 in range(0, W_all, window_group):
+            dg = digits[e0 : e0 + entry_group, w0 : w0 + window_group]
+            Eg, Wg = dg.shape[:2]
+            Rg = Eg * Wg  # (entry, window) rows
+            order = torch.argsort(dg.reshape(Rg, npad), dim=-1, stable=True)
+            sortd = torch.gather(dg.reshape(Rg, npad), -1, order)
+            ends = torch.searchsorted(
+                sortd, bucket_ids.expand(Rg, B - 1).contiguous(), right=True
+            )  # (Rg, B-1)
+            cols = order.reshape(Eg, Wg, npad) + first[e0 : e0 + Eg]
+            x = lm[:, cols.reshape(-1)].reshape(RR, Rg, npad)
 
-        # up-sweep, keeping every level for the Fenwick queries
-        levels = [x]
-        for _ in range(levels_n):
-            k = x.shape[-1]
-            pair = x.reshape(RR, Wg, k // 2, 2)
-            x = g.add(pair[..., 0], pair[..., 1])
-            levels.append(x)
-        total = x[..., 0:1]  # (RR, Wg, 1)
+            # up-sweep, keeping every level for the Fenwick queries
+            levels = [x]
+            for _ in range(levels_n):
+                k = x.shape[-1]
+                pair = x.reshape(RR, Rg, k // 2, 2)
+                x = g.add(pair[..., 0], pair[..., 1])
+                levels.append(x)
+            total = x[..., 0:1]  # (RR, Rg, 1)
 
-        # Fenwick prefix at the B-1 bucket boundaries: one node per level
-        # per boundary, then the levels summed by a pairwise tree
-        rows = torch.arange(Wg, device=dev)[:, None]
-        nodes = []
-        for d in range(levels_n + 1):
-            pd = ends >> d
-            take = ((pd & 1) == 1)[None]
-            k = npad >> d
-            flat = (rows * k + (pd - 1).clamp(min=0)).reshape(-1)
-            node = levels[d].reshape(RR, -1)[:, flat].reshape(RR, Wg, B - 1)
-            nodes.append(torch.where(take, node, inf[:, :, None]))
-        D = len(nodes)
-        dpad = 1 << (D - 1).bit_length()
-        nodes += [inf[:, :, None].expand(RR, Wg, B - 1)] * (dpad - D)
-        stack = torch.stack(nodes, dim=1)  # (RR, dpad, Wg, B-1)
-        while stack.shape[1] > 1:
-            half = stack.shape[1] // 2
-            stack = g.add(stack[:, :half], stack[:, half:])
-        acc = stack[:, 0]  # (RR, Wg, B-1)
-
-        # sum_b b * S_b = sum_{j=0..B-2} (total - C_j)
-        terms = g.add(total.expand(acc.shape), g.neg(acc))
-        k = B - 1
-        while k > 1:
-            if k % 2:
-                terms = torch.cat(
-                    [terms, inf[:, :, None].expand(RR, Wg, 1)], dim=-1
+            # Fenwick prefix at the B-1 bucket boundaries: one node per
+            # level per boundary, then the levels summed by a pairwise tree
+            rows = torch.arange(Rg, device=dev)[:, None]
+            nodes = []
+            for d in range(levels_n + 1):
+                pd = ends >> d
+                take = ((pd & 1) == 1)[None]
+                k = npad >> d
+                flat = (rows * k + (pd - 1).clamp(min=0)).reshape(-1)
+                node = levels[d].reshape(RR, -1)[:, flat].reshape(
+                    RR, Rg, B - 1
                 )
-                k += 1
-            pair = terms.reshape(RR, Wg, k // 2, 2)
-            terms = g.add(pair[..., 0], pair[..., 1])
-            k //= 2
-        sums.append(terms[..., 0])  # (RR, Wg)
+                nodes.append(torch.where(take, node, inf[:, :, None]))
+            D = len(nodes)
+            dpad = 1 << (D - 1).bit_length()
+            nodes += [inf[:, :, None].expand(RR, Rg, B - 1)] * (dpad - D)
+            stack = torch.stack(nodes, dim=1)  # (RR, dpad, Rg, B-1)
+            while stack.shape[1] > 1:
+                half = stack.shape[1] // 2
+                stack = g.add(stack[:, :half], stack[:, half:])
+            acc = stack[:, 0]  # (RR, Rg, B-1)
 
-    s_all = torch.cat(sums, dim=1)  # (RR, W_all)
-    out = g.horner(s_all, c)  # (RR, 1)
-    return g.to_rowmajor(out)[0]
+            # sum_b b * S_b = sum_{j=0..B-2} (total - C_j)
+            terms = g.add(total.expand(acc.shape), g.neg(acc))
+            k = B - 1
+            while k > 1:
+                if k % 2:
+                    terms = torch.cat(
+                        [terms, inf[:, :, None].expand(RR, Rg, 1)], dim=-1
+                    )
+                    k += 1
+                pair = terms.reshape(RR, Rg, k // 2, 2)
+                terms = g.add(pair[..., 0], pair[..., 1])
+                k //= 2
+            window_sums.append(terms[..., 0].reshape(RR, Eg, Wg))
+        entry_sums.append(torch.cat(window_sums, dim=2))
+
+    s_all = torch.cat(entry_sums, dim=1)  # (RR, E, W_all)
+    out = g.horner(s_all, c)  # (RR, E, 1)
+    return g.to_rowmajor(out.reshape(RR, E))
 
 
 # ---------------------------------------------------------------------------

@@ -150,19 +150,33 @@ def msm(curve: CurvePoints, points, scalars, window_bits: int | None = None,
     return acc
 
 
-def msm_batched(curve: CurvePoints, bases, scalars_std):
-    """B same-length MSMs: (B, n, 3) + elem bases and (B, n, k)
-    standard-form scalars -> (B, 3) + elem. Routed as msm: the tree MSM
-    per batch entry above LADDER_MSM_MAX_N points (where the JAX package
-    runs one vmapped Pippenger below TREE_MSM_MIN_N, the port's tree takes
-    those sizes as msm's does), else one batched ladder and a sequential
-    sum. The ladder stops after the highest bit any scalar sets (one read
-    of the device): a later step would only double its base, so the
-    result is the same limbs as the JAX package's 256-step ladder."""
+def msm_batched(curve: CurvePoints, bases, scalars_std, bases_of=None):
+    """B same-length MSMs: (P, n, 3) + elem bases and (B, n, k)
+    standard-form scalars -> (B, 3) + elem, entry b over the base set
+    bases_of[b] (None: P == B, set b). Routed as msm: above
+    LADDER_MSM_MAX_N points all B entries go through one batched tree MSM
+    (limb_kernels.msm_tree_batched: a shared base set is gathered in
+    place, not copied per entry), entry by entry above TREE_MSM_MAX_N;
+    the JAX package runs one vmapped Pippenger below TREE_MSM_MIN_N, where
+    the port's tree takes those sizes as msm's does. Else one batched
+    ladder and a sequential sum. The ladder stops after the highest bit
+    any scalar sets (one read of the device): a later step would only
+    double its base, so the result is the same limbs as the JAX package's
+    256-step ladder."""
+    from .limb_kernels import msm_tree_batched
+
     B, n = scalars_std.shape[0], scalars_std.shape[1]
     if n >= TREE_MSM_MIN_N or n > LADDER_MSM_MAX_N:
-        return torch.stack([_msm_tree(curve, bases[b], scalars_std[b])
-                            for b in range(B)])
+        if n <= TREE_MSM_MAX_N:
+            return msm_tree_batched(bases, scalars_std, bases_of,
+                                    group=_limb_group_for(curve))
+        return torch.stack([
+            _msm_tree(curve, bases[b if bases_of is None else bases_of[b]],
+                      scalars_std[b])
+            for b in range(B)
+        ])
+    if bases_of is not None:
+        bases = bases[bases_of]
     bits = scalar_bits(scalars_std)
     used = torch.nonzero(bits.flatten(0, -2).any(0))
     top = int(used.max()) + 1 if used.numel() else 0

@@ -1,0 +1,527 @@
+"""Batching scheduler: the layer between the job queue and the prover.
+
+The service's executor funnels every proof through one `ProofExecutor`, so
+throughput is one job at a time regardless of queue depth or device
+count. This package adds the continuous-batching layer (Orca-style
+iteration batching from LLM serving, applied to zkSaaS-style proving —
+see docs/SCHEDULER.md):
+
+  bucketer.py      shape-bucketed admission: jobs group by
+                   (kind, circuit, curve, domain size, inputs, l) and a
+                   bucket releases at DG16_BATCH_MAX jobs or after
+                   DG16_BATCH_LINGER_MS
+  placement.py     device inventory sliced into independent prover
+                   meshes with asyncio leases — batches prove
+                   concurrently, not through one global mesh
+  batch_prover.py  B jobs as ONE SPMD mesh program over a shared packed
+                   CRS (models/groth16.build_batch_mesh_prover), demuxed
+                   to per-job results
+
+`BatchScheduler` below wires the three together for the worker pool:
+workers feed admitted jobs in, a linger loop releases expired buckets,
+and each released batch runs end-to-end under a mesh lease on a thread.
+Disabled (DG16_BATCH_MAX <= 1) the service behaves exactly as its per-job
+funnel does — the scheduler is a pure addition, not a replacement.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+
+from ..service.jobs import JobCancelled, JobState
+from ..telemetry import flight as _flight
+from ..telemetry import metrics as _tm
+from ..utils.config import SchedulerConfig
+from .batch_prover import (  # noqa: F401
+    BatchFault,
+    BatchProver,
+    ProverCache,
+    prove_batch,
+)
+from .bucketer import Batch, Bucketer, BucketKey  # noqa: F401
+from .placement import DevicePool, MeshLease  # noqa: F401
+
+log = logging.getLogger(__name__)
+
+__all__ = [
+    "Batch",
+    "BatchFault",
+    "BatchProver",
+    "BatchScheduler",
+    "Bucketer",
+    "BucketKey",
+    "DevicePool",
+    "MeshLease",
+    "PoisonedJobError",
+    "ProverCache",
+    "prove_batch",
+]
+
+_REG = _tm.registry()
+_POISONED = _REG.counter(
+    "scheduler_batch_poisoned_total",
+    "Jobs quarantined after repeatedly failing their batch alone",
+    ("bucket",),
+)
+_BISECTIONS = _REG.counter(
+    "scheduler_batch_bisections_total",
+    "Batch splits performed while isolating a poisoned job",
+)
+# the batch_prover outcome counter (get-or-create is idempotent): the
+# bisection verdicts — quarantined poison, slice-suspect failures — are
+# finalized HERE, so they're counted here; witness-phase and done
+# outcomes are counted where they land, in batch_prover.run_batch
+_BATCH_JOBS = _REG.counter(
+    "scheduler_batch_jobs_total",
+    "Jobs that completed through the batched proving path, by outcome",
+    ("outcome",),
+)
+
+# kinds that batch onto a leased prover mesh; "verify" batches too but
+# leases nothing (an RLC fold is host pairing math + one device MSM —
+# docs/VERIFY.md), so it is special-cased in eligible()/_run_batch
+_BATCHABLE_KINDS = ("prove", "mpc_prove")
+
+
+class PoisonedJobError(Exception):
+    """Terminal verdict for a job that killed its batch alone N times
+    (DG16_SCHED_POISON_RETRIES): quarantined so it can never take down
+    another batch — or be resurrected by a journal replay."""
+
+    def __init__(self, job_id: str, attempts: int, cause: BaseException):
+        self.job_id = job_id
+        self.attempts = attempts
+        self.cause = cause
+        super().__init__(
+            f"job {job_id} quarantined: poisoned its batch in {attempts} "
+            f"solo attempts (last: {type(cause).__name__})"
+        )
+
+
+class BatchScheduler:
+    """Event-loop-side orchestrator: admission -> bucket -> lease -> prove.
+
+    Backpressure: `offer` blocks the feeding worker once `max_inflight`
+    jobs sit in buckets or batches, so the queue refills and the 429
+    admission bound keeps rejecting instead of the scheduler
+    swallowing the backlog.
+    """
+
+    def __init__(self, executor, queue, cfg: SchedulerConfig | None = None,
+                 devices=None, slo_target_s: float = 0.0):
+        self.executor = executor
+        self.queue = queue
+        self.cfg = cfg or SchedulerConfig.from_env()
+        # deadline-aware linger (docs/FLEET.md): with a target, a bucket
+        # may not linger past half the SLO target of its oldest job.
+        # Explicit-only (ApiServer passes SLOConfig.target_s): reading
+        # DG16_SLO_TARGET_S here would let an ambient env var flip
+        # fake-clock scheduler tests onto the wall clock.
+        self.bucketer = Bucketer(
+            self.cfg.batch_max,
+            self.cfg.batch_linger_ms / 1000.0,
+            slo_target_s=slo_target_s,
+            # verify buckets release on their own knobs (docs/VERIFY.md):
+            # folds amortize past any mesh-sized batch, so verify batches
+            # run bigger and linger shorter than prove batches
+            kind_overrides={
+                "verify": (
+                    self.cfg.verify_batch_max,
+                    self.cfg.verify_linger_ms / 1000.0,
+                )
+            },
+        )
+        self.devices = DevicePool(
+            devices,
+            self.cfg.max_meshes,
+            breaker_threshold=self.cfg.breaker_threshold,
+            breaker_cooldown_s=self.cfg.breaker_cooldown_s,
+        )
+        self.batch_prover = BatchProver(executor)
+        # the verification plane's batch runner (verifier/executor.py):
+        # shares the executor's PreparedVerifyingKey cache so per-job and
+        # batched verifies warm the same entries. Executors without a
+        # verifier (test stubs) just never see a verify bucket.
+        self.verify_runner = None
+        if getattr(executor, "verifier", None) is not None:
+            from ..verifier.executor import VerifyBatchRunner
+
+            self.verify_runner = VerifyBatchRunner(executor.verifier)
+        self._meta: dict[str, tuple[int, int]] = {}  # cid -> (m, num_inputs)
+        # solo-failure tally feeding the poisoned-job quarantine
+        self._solo_failures: dict[str, int] = {}
+        self.jobs_poisoned = 0
+        self._inflight = asyncio.Semaphore(
+            self.cfg.max_inflight or 4 * self.cfg.batch_max
+        )
+        self._wake: asyncio.Event | None = None
+        self._runner: asyncio.Task | None = None
+        self._batch_tasks: set[asyncio.Task] = set()
+        self.batches_dispatched = 0
+        self.jobs_batched = 0
+
+    # -- lifecycle (worker pool start/stop) ----------------------------------
+
+    async def start(self) -> None:
+        self._wake = asyncio.Event()
+        self._runner = asyncio.create_task(
+            self._linger_loop(), name="dg16-scheduler"
+        )
+
+    async def stop(self) -> None:
+        if self._runner is not None:
+            self._runner.cancel()
+            await asyncio.gather(self._runner, return_exceptions=True)
+            self._runner = None
+        # jobs still lingering never got a batch — terminal-fail them like
+        # the pool fails undrained QUEUED jobs, so nothing waits forever.
+        # fail_terminal journals BEFORE the in-memory transition so a
+        # crash mid-shutdown can't resurrect deliberately failed jobs.
+        for batch in self.bucketer.flush():
+            for job in batch.jobs:
+                if job.state is JobState.QUEUED:
+                    self.queue.fail_terminal(
+                        job, RuntimeError("service shutting down")
+                    )
+                self._inflight.release()
+        # in-flight batches hold real proving threads — let them finish
+        # (a proof that completes during shutdown is a result, not a
+        # failure; same contract as WorkerPool.stop)
+        if self._batch_tasks:
+            await asyncio.gather(*self._batch_tasks, return_exceptions=True)
+
+    def flush_lingering(self) -> None:
+        """Release every lingering bucket NOW — a partial batch at drain
+        time proves immediately instead of waiting out its linger. The
+        non-blocking half of drain(); also the POST /drain route's hook
+        (docs/FLEET.md)."""
+        for batch in self.bucketer.flush():
+            self._spawn(batch)
+
+    async def drain(self) -> None:
+        """Graceful-drain hook (SIGTERM, docs/ROBUSTNESS.md): release
+        every lingering bucket NOW and wait for all in-flight batches to
+        finish. Unlike stop(), nothing is failed and the linger loop
+        keeps running for any still-arriving jobs."""
+        self.flush_lingering()
+        while self._batch_tasks:
+            await asyncio.gather(*list(self._batch_tasks),
+                                 return_exceptions=True)
+
+    @property
+    def idle(self) -> bool:
+        return len(self.bucketer) == 0 and not self._batch_tasks
+
+    # -- admission (worker side) ---------------------------------------------
+
+    def eligible(self, job) -> bool:
+        """Can this job ride the batched path? Prove kinds need a
+        batchable kind and an inventory slice of 4l devices; verify jobs
+        batch whenever their own knob allows (they lease no mesh).
+        Anything else falls back to the per-job executor funnel."""
+        if self.cfg.batch_max <= 1:
+            return False
+        if job.kind == "verify":
+            return (
+                self.verify_runner is not None
+                and self.cfg.verify_batch_max > 1
+            )
+        return (
+            job.kind in _BATCHABLE_KINDS
+            and self.devices.capacity(4 * job.l) >= 1
+        )
+
+    async def offer(self, job) -> None:
+        """Admit one popped job into its bucket. Blocks (backpressure)
+        while the scheduler is saturated. The batch-admission cancel
+        check lives here and at release: a job cancelled while QUEUED —
+        including while lingering in a bucket — never enters a batch.
+
+        Cancellation-safe: the job is already popped from the queue, so
+        if the feeding worker task is torn down mid-offer (pool stop
+        while parked on the saturation semaphore or the metadata thread
+        hop) the job must not be stranded QUEUED — it gets the same
+        terminal fail the pool gives undrained jobs at shutdown."""
+        held = False
+        try:
+            await self._inflight.acquire()
+            held = True
+            if job.state is not JobState.QUEUED or job.cancel_requested:
+                return
+            try:
+                key = await asyncio.to_thread(self._key_of, job)
+            except Exception as e:  # noqa: BLE001 — bad circuit metadata
+                job.mark_failed(e)
+                self.queue.on_finished(job)
+                return
+            # re-check after the thread hop: a DELETE may have landed
+            # while the metadata loaded
+            if job.state is not JobState.QUEUED or job.cancel_requested:
+                return
+            batch = self.bucketer.add(job, key)
+            held = False  # the permit now rides the batch lifecycle
+            if batch is not None:
+                self._spawn(batch)
+            elif self._wake is not None:
+                self._wake.set()
+        except asyncio.CancelledError:
+            if job.state is JobState.QUEUED:
+                self.queue.fail_terminal(
+                    job, RuntimeError("service shutting down")
+                )
+            raise
+        finally:
+            if held:
+                self._inflight.release()
+
+    def _key_of(self, job) -> BucketKey:
+        meta = self._meta.get(job.circuit_id)
+        if meta is None:
+            r1cs, pk = self.executor.store.load(job.circuit_id)
+            meta = (pk.domain_size, r1cs.num_instance)
+            self._meta[job.circuit_id] = meta
+        return BucketKey(
+            kind=job.kind,
+            circuit_id=job.circuit_id,
+            curve="bn254",
+            domain_size=meta[0],
+            num_inputs=meta[1],
+            l=job.l,
+        )
+
+    # -- release + execution -------------------------------------------------
+
+    async def _linger_loop(self) -> None:
+        while True:
+            deadline = self.bucketer.next_deadline()
+            timeout = (
+                None if deadline is None
+                else max(0.0, deadline - time.monotonic())
+            )
+            try:
+                await asyncio.wait_for(self._wake.wait(), timeout)
+            except asyncio.TimeoutError:
+                pass
+            self._wake.clear()
+            for batch in self.bucketer.pop_expired():
+                self._spawn(batch)
+
+    def _spawn(self, batch: Batch) -> None:
+        task = asyncio.create_task(
+            self._run_batch(batch), name=f"dg16-batch-{batch.key.label}"
+        )
+        self._batch_tasks.add(task)
+        task.add_done_callback(self._batch_tasks.discard)
+
+    def _admit(self, jobs) -> list:
+        """Batch-admission cancel filter: DELETE on a still-QUEUED job
+        flipped it to terminal CANCELLED (queue.cancel) — it must never
+        execute. Dropped jobs are already terminal; only their inflight
+        permit needs returning."""
+        admitted = []
+        for job in jobs:
+            if job.state is JobState.QUEUED and not job.cancel_requested:
+                admitted.append(job)
+            else:
+                self._inflight.release()
+        return admitted
+
+    async def _run_batch(self, batch: Batch) -> None:
+        jobs = self._admit(batch.jobs)
+        if not jobs:
+            return
+        if batch.key.kind == "verify":
+            # no mesh lease: the fold runs host pairing math plus one
+            # batched MSM on the default device — concurrency is bounded
+            # by the inflight semaphore alone
+            lease = None
+        else:
+            lease = await self.devices.acquire(batch.key.n_parties)
+            # re-filter: the lease wait can last a whole prior batch, and
+            # a DELETE landing in that window already made the job
+            # terminal — mark_running after it would resurrect a
+            # CANCELLED job
+            jobs = self._admit(jobs)
+            if not jobs:
+                lease.release()
+                return
+        cancelled = False
+        try:
+            for job in jobs:
+                job.mark_running()
+                self.queue.on_started(job)
+            outcomes = await self._prove_bisecting(
+                jobs, batch.key, lease,
+                lease.mesh if lease is not None else None,
+            )
+        except asyncio.CancelledError:
+            # loop teardown mid-batch: never lose a job — record a
+            # terminal outcome for each, then honor the cancellation
+            # after the bookkeeping below
+            cancelled = True
+            outcomes = [
+                (job, RuntimeError("batch cancelled at shutdown"))
+                for job in jobs
+            ]
+        finally:
+            if lease is not None:
+                lease.release()
+        for job, out in outcomes:
+            self._solo_failures.pop(job.id, None)  # terminal either way
+            if isinstance(out, JobCancelled):
+                job.mark_cancelled()
+            elif isinstance(out, BaseException):
+                log.warning("batched job %s failed: %s", job.id, out)
+                job.mark_failed(out)
+            else:
+                job.mark_done(out)
+            self.queue.on_finished(job)
+            self._inflight.release()
+        self.batches_dispatched += 1
+        self.jobs_batched += len(jobs)
+        if cancelled:
+            raise asyncio.CancelledError
+
+    # -- poisoned-batch bisection --------------------------------------------
+
+    async def _prove_bisecting(self, jobs, key, lease, mesh) -> list:
+        """Run a batch; on a BATCH-WIDE fault, isolate the culprit by
+        bisection instead of failing every batchmate: retry the faulted
+        jobs in halves, and a job that still kills its batch ALONE after
+        DG16_SCHED_POISON_RETRIES solo attempts is quarantined
+        (PoisonedJobError + journal mark + flight-recorder dump) while
+        everyone else completes. Every EXECUTION ATTEMPT also feeds the
+        slice's circuit breaker — a mesh-level fault counts one failure,
+        a successful program resets it — so a genuinely sick slice trips
+        even while bisection is still assigning blame, and a healthy
+        slice that proved the batchmates ends the lease closed.
+        Termination: halving shrinks multi-job faults to singletons, and
+        the per-job solo counter caps singleton retries. Returns final
+        [(job, outcome)] pairs."""
+        # lease-scoped evidence: did ANY mesh execution succeed on this
+        # slice during this batch? The quarantine verdict requires it —
+        # without a working-slice proof, a dead device would brand every
+        # innocent batchmate as poison. Verdicts are DEFERRED until all
+        # halves ran: a poisoned job sorted before its successful
+        # batchmates must not escape just because the evidence arrived
+        # after its retries were exhausted.
+        ctx = {"succeeded": False, "exhausted": []}
+        final = await self._bisect(jobs, key, lease, mesh, ctx)
+        for job, cause, attempts in ctx["exhausted"]:
+            if ctx["succeeded"]:
+                final.append((job, self._quarantine(job, key, cause,
+                                                    attempts)))
+            else:
+                # nothing succeeded on this slice the whole batch: the
+                # slice is as suspect as the job, so fail WITHOUT the
+                # quarantine brand — the breaker is already counting
+                # these faults, and a resubmission may land on a
+                # healthy slice
+                _BATCH_JOBS.labels(outcome="failed").inc()
+                final.append((job, cause))
+        return final
+
+    async def _bisect(self, jobs, key, lease, mesh, ctx: dict) -> list:
+        # kind dispatch: verify batches fold through the VerifyBatchRunner
+        # (no mesh); everything else proves through the BatchProver. Both
+        # share the [(job, outcome)] contract, so the whole fault ladder
+        # below — BatchFault halving, solo retries, quarantine — applies
+        # to either workload unchanged.
+        runner = (
+            self.verify_runner.run_batch
+            if key.kind == "verify"
+            else self.batch_prover.run_batch
+        )
+        try:
+            raw = await asyncio.to_thread(runner, jobs, key, mesh)
+        except asyncio.CancelledError:
+            # task teardown, not a device fault: it must neither feed the
+            # breaker nor enter the retry ladder — _run_batch terminal-
+            # fails the jobs and re-raises
+            raise
+        except BaseException as e:  # noqa: BLE001 — never lose a job
+            fault = e if isinstance(e, BatchFault) else BatchFault(e)
+            raw = [(job, fault) for job in jobs]
+        final, faulted = [], []
+        for job, out in raw:
+            if isinstance(out, BatchFault):
+                faulted.append((job, out))
+            else:
+                final.append((job, out))
+        if faulted:
+            if lease is not None:
+                self.devices.report(lease, ok=False)
+        elif any(not isinstance(o, BaseException) for _, o in final):
+            # host-side-only outcomes (bad witness, cancel) say nothing
+            # about the devices — only a real proof counts as success.
+            # Verify batches hold no lease: the success flag still arms
+            # the quarantine verdict (a poisoned payload must not hide
+            # behind the everything-failed escape hatch), but there is
+            # no slice breaker to feed.
+            ctx["succeeded"] = True
+            if lease is not None:
+                self.devices.report(lease, ok=True)
+        if not faulted:
+            return final
+        if len(faulted) > 1:
+            _BISECTIONS.inc()
+            mid = len(faulted) // 2
+            final += await self._bisect(
+                [j for j, _ in faulted[:mid]], key, lease, mesh, ctx
+            )
+            final += await self._bisect(
+                [j for j, _ in faulted[mid:]], key, lease, mesh, ctx
+            )
+            return final
+        # one job failed alone: it is the prime suspect — retry it solo
+        # until the retry budget is spent, then hand the verdict to the
+        # deferred pass in _prove_bisecting
+        job, fault = faulted[0]
+        cause = fault.cause
+        attempts = self._solo_failures.get(job.id, 0) + 1
+        self._solo_failures[job.id] = attempts
+        if attempts < max(1, self.cfg.poison_retries):
+            final += await self._bisect([job], key, lease, mesh, ctx)
+            return final
+        ctx["exhausted"].append((job, cause, attempts))
+        return final
+
+    def _quarantine(self, job, key, cause, attempts) -> PoisonedJobError:
+        self._solo_failures.pop(job.id, None)
+        self.jobs_poisoned += 1
+        verdict = PoisonedJobError(job.id, attempts, cause)
+        _POISONED.labels(bucket=key.label).inc()
+        _BATCH_JOBS.labels(outcome="poisoned").inc()
+        if self.queue.journal is not None:
+            # quarantine mark BEFORE the terminal transition: a crash in
+            # between must not let a replay re-enqueue the poison
+            self.queue.journal.append_quarantine(job.id, str(verdict))
+        log.error("quarantining poisoned job %s: %s", job.id, verdict)
+        _flight.dump_soon(
+            "batch_poisoned",
+            extra={"jobId": job.id, "bucket": key.label,
+                   "attempts": attempts, "cause": type(cause).__name__},
+        )
+        return verdict
+
+    # -- /stats --------------------------------------------------------------
+
+    def stats(self) -> dict:
+        return {
+            "enabled": True,
+            "batchMax": self.cfg.batch_max,
+            "lingerMs": self.cfg.batch_linger_ms,
+            "verifyBatchMax": self.cfg.verify_batch_max,
+            "verifyLingerMs": self.cfg.verify_linger_ms,
+            "batchesDispatched": self.batches_dispatched,
+            "jobsBatched": self.jobs_batched,
+            "jobsPoisoned": self.jobs_poisoned,
+            "bucketOccupancy": self.bucketer.occupancy(),
+            "placement": self.devices.stats(),
+            "proverCache": {
+                "hits": self.batch_prover.provers.hits,
+                "misses": self.batch_prover.provers.misses,
+            },
+        }

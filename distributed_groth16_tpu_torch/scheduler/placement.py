@@ -1,0 +1,339 @@
+"""Device inventory + mesh leases — the placement half of the scheduler,
+the counterpart of distributed_groth16_tpu/scheduler/placement.py.
+
+The inventory (default: the CUDA devices; none raises) is leased one card
+at a time. The JAX package slices its inventory into disjoint runs of
+`n_parties` devices, one party a device; the port holds all n parties of
+a mesh on one card (parallel/mesh.py), so one lease is one card whatever
+`n_parties` is: `capacity(n)` is the number of cards (one on a
+one-card host) and `max_meshes` still caps concurrency. A batch holds a
+`MeshLease` on its card for its whole proving round, so batches prove
+concurrently on a multi-card host instead of through one global mesh.
+
+Leases are asyncio-native (acquired on the event loop, the proving work
+itself runs on a thread): an `asyncio.Condition` parks waiters when every
+slice is busy, and `release()` wakes exactly them. The mesh object is
+built lazily per lease and memoized, so lease accounting is testable
+with fake device objects and repeated leases don't rebuild meshes.
+
+Circuit breakers (docs/ROBUSTNESS.md): each (card, n_parties) slice
+carries a consecutive-failure counter fed by the scheduler's per-batch
+outcome reports. `threshold` consecutive failures TRIP the slice — it
+enters an OPEN cooldown and `_free_slot` routes new batches around it;
+after `cooldown_s` it goes HALF-OPEN and admits exactly one probe batch,
+whose outcome either closes the breaker or re-opens the cooldown. The
+`mesh_breaker_state{slice}` gauge spells the state machine for
+dashboards (0 closed / 1 half-open / 2 open). A sick card therefore
+costs its own batches only until the breaker trips, not every batch the
+placement round-robin would have handed it.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+
+from ..telemetry import flight as _flight
+from ..telemetry import metrics as _tm
+
+_REG = _tm.registry()
+_MESH_IN_USE = _REG.gauge(
+    "scheduler_mesh_leases_in_use", "Mesh slices currently leased to a batch"
+)
+_MESH_CAPACITY = _REG.gauge(
+    "scheduler_mesh_capacity", "Distinct prover meshes the inventory supports",
+    ("n_parties",),
+)
+_MESH_UTIL = _REG.gauge(
+    "scheduler_mesh_utilization",
+    "Busy fraction of the device inventory (leased devices / total)",
+)
+_MESH_WAIT = _REG.histogram(
+    "scheduler_mesh_wait_seconds",
+    "Seconds a released batch waited for a free mesh slice",
+)
+_BREAKER_STATE = _REG.gauge(
+    "mesh_breaker_state",
+    "Circuit-breaker state per device slice: 0 closed, 1 half-open, "
+    "2 open (cooling down)",
+    ("slice",),
+)
+_BREAKER_TRIPS = _REG.counter(
+    "mesh_breaker_trips_total",
+    "Breaker trips (closed/half-open -> open) per device slice",
+    ("slice",),
+)
+
+# breaker states — gauge values are part of the dashboard contract
+_CLOSED, _HALF_OPEN, _OPEN = 0, 1, 2
+
+
+class _Breaker:
+    """Consecutive-failure circuit breaker for one (slot, n_parties)
+    device slice. Pure state machine — the pool drives it under its own
+    event-loop-side accounting, so no lock is needed."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.state = _CLOSED
+        self.failures = 0
+        self.opened_at = 0.0
+        self.probing = False  # half-open: exactly one probe batch at a time
+
+    def allows(self, now: float, cooldown_s: float) -> bool:
+        if self.state == _CLOSED:
+            return True
+        if self.state == _OPEN:
+            if now - self.opened_at >= cooldown_s:
+                self.state = _HALF_OPEN
+                self.probing = False
+                _BREAKER_STATE.labels(slice=self.label).set(_HALF_OPEN)
+                return True
+            return False
+        return not self.probing  # half-open: one probe in flight max
+
+    def on_lease(self) -> None:
+        if self.state == _HALF_OPEN:
+            self.probing = True
+
+    def record_success(self) -> None:
+        self.state = _CLOSED
+        self.failures = 0
+        self.probing = False
+        _BREAKER_STATE.labels(slice=self.label).set(_CLOSED)
+
+    def record_failure(self, now: float, threshold: int) -> bool:
+        """Returns True when this failure TRIPS the breaker (closed ->
+        open or a failed half-open probe re-opening)."""
+        self.probing = False
+        if self.state == _HALF_OPEN:
+            self.state = _OPEN
+            self.opened_at = now
+            _BREAKER_STATE.labels(slice=self.label).set(_OPEN)
+            return True
+        self.failures += 1
+        if self.state == _CLOSED and self.failures >= threshold:
+            self.state = _OPEN
+            self.opened_at = now
+            _BREAKER_STATE.labels(slice=self.label).set(_OPEN)
+            return True
+        return False
+
+    def cooldown_remaining(self, now: float, cooldown_s: float) -> float | None:
+        if self.state != _OPEN:
+            return None
+        return max(0.0, cooldown_s - (now - self.opened_at))
+
+
+class MeshLease:
+    """Exclusive hold on one card for an n_parties mesh; `mesh` builds the
+    parties mesh on first use. Always release() (the scheduler does so in
+    a finally)."""
+
+    def __init__(self, pool: "DevicePool", slot: int, devices: list,
+                 n_parties: int):
+        self.pool = pool
+        self.slot = slot
+        self.devices = devices  # [the card]
+        self.n_parties = n_parties
+        self._mesh = None
+        self._released = False
+
+    @property
+    def mesh(self):
+        if self._mesh is None:
+            self._mesh = self.pool._mesh_for(
+                self.slot, self.devices, self.n_parties
+            )
+        return self._mesh
+
+    def release(self) -> None:
+        if not self._released:
+            self._released = True
+            self.pool._release(self)
+
+
+class DevicePool:
+    def __init__(
+        self,
+        devices=None,
+        max_meshes: int = 0,
+        breaker_threshold: int = 3,
+        breaker_cooldown_s: float = 30.0,
+        clock=time.monotonic,
+    ):
+        if devices is None:
+            import torch
+
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "no CUDA device: pass devices= (e.g. "
+                    "[torch.device('cpu')]) to place batches elsewhere"
+                )
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        self.devices = list(devices)
+        self.max_meshes = max_meshes  # 0 = as many as the inventory allows
+        # circuit-breaker knobs (DG16_BREAKER_*): <=0 threshold disables
+        # breakers entirely; clock is injectable so cooldown/half-open
+        # transitions are unit-testable without sleeping
+        self.breaker_threshold = breaker_threshold
+        self.breaker_cooldown_s = breaker_cooldown_s
+        self._clock = clock
+        self._breakers: dict[tuple[int, int], _Breaker] = {}
+        # busy card indices: a lease of any party count holds one card
+        self._busy: set[int] = set()
+        self._leases = 0
+        self._cond = asyncio.Condition()
+        self._meshes: dict[tuple, object] = {}  # (slot, n) -> PartyMesh
+
+    def capacity(self, n_parties: int) -> int:
+        """How many n_parties-meshes the inventory holds at once: one a
+        card, whatever n_parties is."""
+        if n_parties <= 0:
+            return 0
+        cap = len(self.devices)
+        if self.max_meshes > 0:
+            cap = min(cap, self.max_meshes)
+        return cap
+
+    # -- circuit breakers ----------------------------------------------------
+
+    def _breaker(self, slot: int, n_parties: int) -> _Breaker:
+        key = (slot, n_parties)
+        br = self._breakers.get(key)
+        if br is None:
+            br = self._breakers[key] = _Breaker(f"{n_parties}p{slot}")
+        return br
+
+    def report(self, lease: "MeshLease", ok: bool) -> None:
+        """Scheduler-side outcome report for one finished batch: success
+        closes the slice's breaker, a mesh-level failure advances it
+        toward (or past) the trip threshold. No-op with breakers off."""
+        if self.breaker_threshold <= 0:
+            return
+        br = self._breaker(lease.slot, lease.n_parties)
+        if ok:
+            br.record_success()
+            return
+        if br.record_failure(self._clock(), self.breaker_threshold):
+            _BREAKER_TRIPS.labels(slice=br.label).inc()
+            _flight.note("breaker_trip", slice=br.label)
+
+    def _allows(self, slot: int, n_parties: int) -> bool:
+        if self.breaker_threshold <= 0:
+            return True
+        br = self._breakers.get((slot, n_parties))
+        return br is None or br.allows(self._clock(), self.breaker_cooldown_s)
+
+    def _next_breaker_expiry(self, n_parties: int) -> float | None:
+        """Seconds until the earliest OPEN breaker of this party count
+        could go half-open — the bounded wait an acquire() uses when
+        every otherwise-free slice is tripped (nothing will notify the
+        condition when a cooldown lapses)."""
+        now = self._clock()
+        remains = [
+            r
+            for (slot, n), br in self._breakers.items()
+            if n == n_parties
+            and (r := br.cooldown_remaining(now, self.breaker_cooldown_s))
+            is not None
+        ]
+        return min(remains) + 0.001 if remains else None
+
+    def _free_slot(self, n_parties: int) -> int | None:
+        if self.max_meshes > 0 and self._leases >= self.max_meshes:
+            return None
+        for slot in range(len(self.devices)):
+            if slot not in self._busy and self._allows(slot, n_parties):
+                return slot
+        return None
+
+    async def acquire(self, n_parties: int) -> MeshLease:
+        """Lease a free card for an n_parties mesh, waiting if every card
+        is busy or breaker-tripped. Raises RuntimeError when the inventory
+        can NEVER satisfy the request (callers gate on capacity() at
+        admission)."""
+        if self.capacity(n_parties) < 1:
+            raise RuntimeError(
+                f"no card for a mesh of {n_parties} parties "
+                f"(inventory: {len(self.devices)})"
+            )
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        async with self._cond:
+            while True:
+                slot = self._free_slot(n_parties)
+                if slot is not None:
+                    self._busy.add(slot)
+                    self._leases += 1
+                    br = self._breakers.get((slot, n_parties))
+                    if br is not None:
+                        br.on_lease()  # a half-open slice admits one probe
+                    self._update_gauges(n_parties)
+                    _MESH_WAIT.observe(loop.time() - t0)
+                    return MeshLease(
+                        self, slot, [self.devices[slot]], n_parties
+                    )
+                # bounded wait: a release() notifies, and an OPEN breaker
+                # lapsing into half-open must wake us even if nobody does
+                timeout = self._next_breaker_expiry(n_parties)
+                try:
+                    await asyncio.wait_for(self._cond.wait(), timeout)
+                except asyncio.TimeoutError:
+                    pass
+
+    def _release(self, lease: "MeshLease") -> None:
+        self._busy.discard(lease.slot)
+        self._leases -= 1
+        br = self._breakers.get((lease.slot, lease.n_parties))
+        if br is not None and br.probing:
+            # the probe lease ended without a report (every job cancelled
+            # or failed host-side — nothing mesh-level happened): the
+            # probe was INCONCLUSIVE, so let the next batch probe again
+            # rather than blacking the slice out forever
+            br.probing = False
+        _MESH_IN_USE.set(self._leases)
+        if self.devices:
+            _MESH_UTIL.set(len(self._busy) / len(self.devices))
+
+        async def _notify():
+            async with self._cond:
+                self._cond.notify_all()
+
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            loop = None
+        if loop is not None:
+            loop.create_task(_notify())
+
+    def _update_gauges(self, n_parties: int) -> None:
+        _MESH_IN_USE.set(self._leases)
+        _MESH_CAPACITY.labels(n_parties=n_parties).set(self.capacity(n_parties))
+        if self.devices:
+            _MESH_UTIL.set(len(self._busy) / len(self.devices))
+
+    def _mesh_for(self, slot: int, devices: list, n_parties: int):
+        key = (slot, n_parties)
+        mesh = self._meshes.get(key)
+        if mesh is None:
+            from ..parallel.mesh import make_mesh
+
+            mesh = self._meshes[key] = make_mesh(n_parties, devices[0])
+        return mesh
+
+    def stats(self) -> dict:
+        state_names = {_CLOSED: "closed", _HALF_OPEN: "half-open",
+                       _OPEN: "open"}
+        return {
+            "devices": len(self.devices),
+            "busyDevices": len(self._busy),
+            "leasesInUse": self._leases,
+            "maxMeshes": self.max_meshes,
+            "breakers": {
+                br.label: state_names[br.state]
+                for br in self._breakers.values()
+                if br.state != _CLOSED or br.failures > 0
+            },
+        }

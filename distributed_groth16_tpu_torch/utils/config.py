@@ -1,19 +1,21 @@
-"""Transport configuration and the distributed runs' CLI surface — the
+"""Configuration: the DG16_* knobs and the structured configs — the
 part of the JAX package's utils/config.py that the port has so far.
 
   * KNOBS, the registry of the DG16_* environment knobs the port reads,
-    with the JAX package's text, and the typed accessors env_flag and
-    env_float (reading an undeclared knob raises);
+    with the JAX package's text, and the typed accessors env_str,
+    env_flag, env_int and env_float (reading an undeclared knob raises);
   * NetConfig, the star transport's deadlines and liveness knobs, each
     with a DG16_NET_* override (NetConfig.from_env);
+  * ServiceConfig, SchedulerConfig and SLOConfig, the job service's,
+    batching scheduler's and SLO monitor's knobs, with the JAX package's
+    fields, defaults and overrides;
   * read_address_file: the address-file format of network-address/4|8,
     one `host:port` per rank.
 
-env_str, env_int, Opt and parse_opt come with their first caller: the
-examples take the JAX examples' flags (examples/_star.py), not the
-reference's structopt `Opt {id, input, l, t, m}`. ServiceConfig,
-SchedulerConfig, SLOConfig, FleetConfig and TenantConfig come with the
-service, scheduler and fleet planes.
+Opt and parse_opt come with their first caller: the examples take the
+JAX examples' flags (examples/_star.py), not the reference's structopt
+`Opt {id, input, l, t, m}`. FleetConfig and TenantConfig come with the
+fleet plane.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import os
 from dataclasses import dataclass
 
 KNOBS: dict[str, str] = {
-    # transport
+    # transport (docs/ROBUSTNESS.md)
     "DG16_NET_OP_TIMEOUT_S": "per-collective send/recv deadline, <=0 off",
     "DG16_NET_CONNECT_TIMEOUT_S": "total bring-up budget (dial + barrier)",
     "DG16_NET_CONNECT_BASE_DELAY_S": "client redial backoff base",
@@ -30,10 +32,51 @@ KNOBS: dict[str, str] = {
     "DG16_NET_CONNECT_JITTER": "redial backoff jitter fraction",
     "DG16_NET_HEARTBEAT_S": "idle-link keepalive period, <=0 off",
     "DG16_NET_IDLE_TIMEOUT_S": "declare a silent peer dead after this",
-    # phase timers
+    # service (docs/SERVICE.md)
+    "DG16_SERVICE_WORKERS": "worker pool size (concurrent proofs)",
+    "DG16_SERVICE_QUEUE_BOUND": "admission bound before 429",
+    "DG16_SERVICE_CRS_CACHE": "packed-CRS LRU entries, 0 off",
+    "DG16_SERVICE_ROUND_RETRIES": "transient-fault re-runs per MPC round",
+    "DG16_SERVICE_RETRY_AFTER_S": "cold-start retryAfter hint seconds",
+    "DG16_SERVICE_JOB_HISTORY": "terminal jobs kept addressable",
+    # crash safety (docs/ROBUSTNESS.md)
+    "DG16_JOURNAL": "durable job journal: dir, or 1 = <store>/_journal",
+    "DG16_JOURNAL_FSYNC": "fsync each journal append (default on)",
+    "DG16_JOURNAL_SEGMENT_RECORDS": "journal records per segment before compaction",
+    # batching scheduler (docs/SCHEDULER.md)
+    "DG16_BATCH_MAX": "jobs per batch; <=1 disables the scheduler",
+    "DG16_BATCH_LINGER_MS": "partial-bucket wait for batchmates",
+    "DG16_SCHED_MESHES": "cap on concurrently leased prover meshes",
+    "DG16_SCHED_INFLIGHT": "scheduler backpressure bound",
+    "DG16_SCHED_POISON_RETRIES": "solo batch failures before quarantine",
+    "DG16_BREAKER_THRESHOLD": "slice failures tripping its breaker, <=0 off",
+    "DG16_BREAKER_COOLDOWN_S": "tripped-slice cooldown before half-open probe",
+    # verification plane (docs/VERIFY.md)
+    "DG16_VERIFY_BATCH_MAX": "verify jobs per RLC batch; <=1 per-job checks",
+    "DG16_VERIFY_LINGER_MS": "partial verify-bucket wait for batchmates",
+    # telemetry (docs/OBSERVABILITY.md)
+    "DG16_METRICS": "metrics kill switch (default on; 0/false off)",
     "DG16_TRACE": "print Start:/End: phase lines",
-    # frontend
+    "DG16_TRACE_OUT": "record all spans, Chrome trace file at exit",
+    "DG16_AGG": "star-wide trace aggregation plane (default off)",
+    "DG16_FLIGHT_DIR": "flight-recorder post-mortem directory",
+    # logging spine (docs/OBSERVABILITY.md "Logging spine")
+    "DG16_LOG_RING": "structured log ring size, records",
+    "DG16_LOG_LEVEL": "package logger level (default INFO)",
+    "DG16_LOG_JSON": "console handler emits JSON lines",
+    "DG16_LOG_STORM_BURST": "per-template records before suppression",
+    "DG16_LOG_STORM_RATE": "suppressed-template refill, records/sec, <=0 off",
+    # fleet plane (docs/FLEET.md)
+    "DG16_FLEET_REPLICA_ID": "this replica's id in /readyz (default: random)",
+    # SLO burn-rate monitoring (docs/OBSERVABILITY.md)
+    "DG16_SLO_TARGET_S": "default job-latency SLO target, <=0 off",
+    "DG16_SLO_TARGETS": "per-kind latency targets, kind=seconds CSV",
+    "DG16_SLO_OBJECTIVE": "fraction of jobs that must meet the target",
+    "DG16_SLO_WINDOW_S": "error-budget accounting window",
+    "DG16_SLO_SAMPLE_S": "SLO sampler period",
+    # frontend / store
     "DG16_NO_CWASM": "force the pure-Python WASM witness VM",
+    "DG16_STORE": "circuit store root directory",
 }
 
 
@@ -46,12 +89,22 @@ def _declared(name: str) -> str:
     return name
 
 
+def env_str(name: str, default: str = "") -> str:
+    v = os.environ.get(_declared(name))
+    return v if v not in (None, "") else default
+
+
 def env_flag(name: str, default: bool = False) -> bool:
     """'', unset -> default; '0'/'false' (any case) -> False; else True."""
     v = os.environ.get(_declared(name))
     if v is None or v == "":
         return default
     return v.lower() not in ("0", "false")
+
+
+def env_int(name: str, default: int) -> int:
+    v = os.environ.get(_declared(name))
+    return int(v) if v not in (None, "") else default
 
 
 def env_float(name: str, default: float) -> float:
@@ -107,6 +160,194 @@ class NetConfig:
             connect_jitter=env_float("DG16_NET_CONNECT_JITTER", 0.5),
             heartbeat_interval_s=env_float("DG16_NET_HEARTBEAT_S", 15.0),
             idle_timeout_s=env_float("DG16_NET_IDLE_TIMEOUT_S", 600.0),
+        )
+
+
+@dataclass(frozen=True)
+class ServiceConfig:
+    """Proof-job service knobs (service/ + api/server.py). Every field has
+    a DG16_SERVICE_* env override so a deployment can be tuned without code
+    changes. See docs/SERVICE.md for the backpressure semantics.
+
+      * workers — bounded worker pool size: at most this many proofs
+        execute concurrently; everything else waits in the queue.
+      * queue_bound — admission control: jobs waiting (QUEUED) beyond this
+        are rejected with a structured queue-full error that the API maps
+        to HTTP 429 + a retryAfter hint.
+      * crs_cache_size — LRU capacity (entries) of the packed-CRS cache,
+        keyed by (circuit_id, packing params). 0 disables caching.
+      * round_retries — transient-fault re-runs per MPC round, forwarded
+        to parallel.net.run_round_with_retries.
+      * retry_after_s — fallback retryAfter hint (seconds) reported on
+        queue-full rejections before any job has completed (after that the
+        hint is estimated from observed job runtimes).
+      * job_history — how many terminal (DONE/FAILED/CANCELLED) jobs stay
+        addressable via GET /jobs/{id}; older ones are evicted so a
+        long-lived service doesn't grow its registry without bound.
+      * journal_dir — durable job-journal directory (service/journal.py):
+        "" disables, "1"/"true" means <store root>/_journal, anything
+        else is an explicit path. With it on, accepted jobs survive a
+        crash and are replayed at the next boot (docs/ROBUSTNESS.md).
+      * journal_fsync — fsync every journal append (the durability
+        contract; off trades it for speed in tests/throwaway replicas).
+      * journal_segment_records — appends per journal segment before a
+        compaction rewrites the live set and drops old segments.
+    """
+
+    workers: int = 2
+    queue_bound: int = 64
+    crs_cache_size: int = 8
+    round_retries: int = 2
+    retry_after_s: float = 5.0
+    job_history: int = 1024
+    journal_dir: str = ""
+    journal_fsync: bool = True
+    journal_segment_records: int = 4096
+    # fleet identity (docs/FLEET.md): the id this replica reports in its
+    # /readyz capacity document — what `dg16-cli fleet status` and the
+    # router's replica table call it. "" = a random id per process.
+    replica_id: str = ""
+
+    @staticmethod
+    def from_env() -> "ServiceConfig":
+        return ServiceConfig(
+            workers=env_int("DG16_SERVICE_WORKERS", 2),
+            queue_bound=env_int("DG16_SERVICE_QUEUE_BOUND", 64),
+            crs_cache_size=env_int("DG16_SERVICE_CRS_CACHE", 8),
+            round_retries=env_int("DG16_SERVICE_ROUND_RETRIES", 2),
+            retry_after_s=env_float("DG16_SERVICE_RETRY_AFTER_S", 5.0),
+            job_history=env_int("DG16_SERVICE_JOB_HISTORY", 1024),
+            journal_dir=env_str("DG16_JOURNAL", ""),
+            journal_fsync=env_flag("DG16_JOURNAL_FSYNC", True),
+            journal_segment_records=env_int(
+                "DG16_JOURNAL_SEGMENT_RECORDS", 4096
+            ),
+            replica_id=env_str("DG16_FLEET_REPLICA_ID", ""),
+        )
+
+
+@dataclass(frozen=True)
+class SchedulerConfig:
+    """Batching-scheduler knobs (scheduler/, docs/SCHEDULER.md). Every
+    field has a DG16_* env override.
+
+      * batch_max — jobs per bucket before a batch releases immediately.
+        <= 1 DISABLES the scheduler entirely: the service runs its
+        per-job executor funnel, byte-for-byte.
+      * batch_linger_ms — how long a partially-filled bucket waits for
+        batchmates before releasing anyway: the latency a lone job pays
+        for amortization. 0 releases on the next scheduler tick.
+      * max_meshes — cap on concurrently leased prover meshes. 0 = as
+        many disjoint 4l-device slices as the inventory supports.
+      * max_inflight — backpressure bound on jobs the scheduler holds
+        (bucketed + batching). Workers stop feeding past it, so the
+        queue refills and the 429 admission bound stays meaningful.
+        0 = 4 x batch_max.
+      * poison_retries — how many times a job may kill its batch ALONE
+        (after bisection isolates it) before it is quarantined instead
+        of retried (docs/SCHEDULER.md "Poisoned batches").
+      * breaker_threshold — consecutive mesh-level batch failures that
+        trip a device slice's circuit breaker; <= 0 disables breakers.
+      * breaker_cooldown_s — seconds a tripped slice cools down before
+        a half-open probe batch may test it again.
+      * verify_batch_max / verify_linger_ms — the verify-bucket overrides
+        (docs/VERIFY.md): kind="verify" jobs release at verify_batch_max
+        and linger verify_linger_ms, independent of the prove knobs,
+        because an RLC fold is milliseconds of host pairing math and can
+        afford a much bigger batch than a mesh lease can.
+        verify_batch_max <= 1 keeps verify jobs on the per-job executor
+        path even with the scheduler on. (The scheduler itself still
+        exists only when batch_max > 1.)
+    """
+
+    batch_max: int = 1
+    batch_linger_ms: float = 50.0
+    max_meshes: int = 0
+    max_inflight: int = 0
+    poison_retries: int = 2
+    breaker_threshold: int = 3
+    breaker_cooldown_s: float = 30.0
+    verify_batch_max: int = 16
+    verify_linger_ms: float = 25.0
+
+    @staticmethod
+    def from_env() -> "SchedulerConfig":
+        return SchedulerConfig(
+            batch_max=env_int("DG16_BATCH_MAX", 1),
+            batch_linger_ms=env_float("DG16_BATCH_LINGER_MS", 50.0),
+            max_meshes=env_int("DG16_SCHED_MESHES", 0),
+            max_inflight=env_int("DG16_SCHED_INFLIGHT", 0),
+            poison_retries=env_int("DG16_SCHED_POISON_RETRIES", 2),
+            breaker_threshold=env_int("DG16_BREAKER_THRESHOLD", 3),
+            breaker_cooldown_s=env_float("DG16_BREAKER_COOLDOWN_S", 30.0),
+            verify_batch_max=env_int("DG16_VERIFY_BATCH_MAX", 16),
+            verify_linger_ms=env_float("DG16_VERIFY_LINGER_MS", 25.0),
+        )
+
+
+@dataclass(frozen=True)
+class SLOConfig:
+    """Service-level-objective knobs (service/slo.py, the burn-rate
+    sampler behind `/slo` and the `slo_burn_rate{kind}` gauges). The SLO
+    is a latency objective per job kind: at least `objective` of a kind's
+    terminal jobs must finish within that kind's target seconds; the
+    remainder is the error budget, accounted over a rolling `window_s`.
+
+      * target_s — default latency target (seconds) for any kind without
+        an explicit entry in `targets`. <= 0 disables SLO monitoring
+        entirely (no sampler task, `/stats` reports enabled: false).
+      * targets — per-kind overrides, parsed from the DG16_SLO_TARGETS
+        CSV (`prove=30,mpc_prove=120`).
+      * objective — fraction of jobs that must meet the target (0.99 =
+        a 1% error budget).
+      * window_s — rolling window the budget is accounted over.
+      * sample_s — how often the background sampler re-derives the
+        burn-rate gauges from the job_seconds series.
+    """
+
+    target_s: float = 0.0
+    targets: tuple = ()
+    objective: float = 0.99
+    window_s: float = 3600.0
+    sample_s: float = 5.0
+
+    @property
+    def enabled(self) -> bool:
+        return self.target_s > 0 or bool(self.targets)
+
+    def target_for(self, kind: str) -> float:
+        for k, v in self.targets:
+            if k == kind:
+                return v
+        return self.target_s
+
+    @staticmethod
+    def parse_targets(spec: str) -> tuple:
+        """`prove=30,mpc_prove=120` -> (("prove", 30.0), ...). Malformed
+        entries raise ValueError — a silently ignored SLO is worse than a
+        loud boot failure."""
+        out = []
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            kind, _, val = part.partition("=")
+            if not kind or not val:
+                raise ValueError(
+                    f"bad DG16_SLO_TARGETS entry {part!r} "
+                    "(expected kind=seconds)"
+                )
+            out.append((kind.strip(), float(val)))
+        return tuple(out)
+
+    @staticmethod
+    def from_env() -> "SLOConfig":
+        return SLOConfig(
+            target_s=env_float("DG16_SLO_TARGET_S", 0.0),
+            targets=SLOConfig.parse_targets(env_str("DG16_SLO_TARGETS", "")),
+            objective=env_float("DG16_SLO_OBJECTIVE", 0.99),
+            window_s=env_float("DG16_SLO_WINDOW_S", 3600.0),
+            sample_s=env_float("DG16_SLO_SAMPLE_S", 5.0),
         )
 
 

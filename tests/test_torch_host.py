@@ -80,6 +80,29 @@ PORT_MODULES = [
     "distributed_groth16_tpu_torch.examples.nonlocal_kernel",
     "distributed_groth16_tpu_torch.examples.nonlocal_sha256",
     "distributed_groth16_tpu_torch.examples.launch",
+    "distributed_groth16_tpu_torch.parallel.mesh",
+    "distributed_groth16_tpu_torch.models.groth16.mesh_prover",
+    "distributed_groth16_tpu_torch.telemetry",
+    "distributed_groth16_tpu_torch.telemetry.metrics",
+    "distributed_groth16_tpu_torch.telemetry.tracing",
+    "distributed_groth16_tpu_torch.telemetry.aggregate",
+    "distributed_groth16_tpu_torch.telemetry.flight",
+    "distributed_groth16_tpu_torch.telemetry.logbus",
+    "distributed_groth16_tpu_torch.telemetry.devmem",
+    "distributed_groth16_tpu_torch.telemetry.transfer",
+    "distributed_groth16_tpu_torch.service",
+    "distributed_groth16_tpu_torch.service.jobs",
+    "distributed_groth16_tpu_torch.service.queue",
+    "distributed_groth16_tpu_torch.service.crs_cache",
+    "distributed_groth16_tpu_torch.service.journal",
+    "distributed_groth16_tpu_torch.service.slo",
+    "distributed_groth16_tpu_torch.service.worker",
+    "distributed_groth16_tpu_torch.scheduler",
+    "distributed_groth16_tpu_torch.scheduler.bucketer",
+    "distributed_groth16_tpu_torch.scheduler.placement",
+    "distributed_groth16_tpu_torch.scheduler.batch_prover",
+    "distributed_groth16_tpu_torch.api",
+    "distributed_groth16_tpu_torch.api.store",
 ]
 COPIES = ["constants", "refmath", "primemath", "glv", "pairing"]
 FRONTEND_COPIES = ["r1cs", "sha256", "wasm_vm", "witness_calculator",
@@ -89,6 +112,33 @@ MODEL_COPIES = ["reference"]
 UTIL_COPIES = ["serde", "certs"]
 PARALLEL_COPIES = ["faults"]
 VERIFIER_COPIES = ["executor", "__init__"]
+# the service plane's copies, by subpackage
+SERVICE_COPIES = {
+    "telemetry": ["metrics", "tracing", "__init__"],
+    "service": ["jobs", "queue", "crs_cache", "journal", "__init__"],
+    "scheduler": ["bucketer"],
+    "api": ["__init__"],
+}
+# copies that differ from the JAX module only where its text names an
+# earlier PR of the JAX package: program files of the port name no PR
+REWORDED = {
+    "telemetry/aggregate.py": [
+        ("PR 3 made one process legible;",
+         "The telemetry subsystem made one process legible;")],
+    "telemetry/flight.py": [
+        ("round-retry exhaustion — PR 1's fault\nmachinery)",
+         "round-retry exhaustion — the transport's fault\nmachinery)")],
+    "scheduler/__init__.py": [
+        ("PR 2's service funnels every proof",
+         "The service's executor funnels every proof"),
+        ("the service behaves exactly as PR 2 built\nit",
+         "the service behaves exactly as its per-job\nfunnel does"),
+        ("admission bound (PR 2) keeps rejecting",
+         "admission bound keeps rejecting")],
+    "service/slo.py": [
+        ("the `jobs_*_total` counters (PR 3) — but",
+         "the `jobs_*_total` counters — but")],
+}
 
 
 def _forbidden(name: str) -> bool:
@@ -116,6 +166,8 @@ def test_importing_the_port_loads_no_jax():
     assert "distributed_groth16_tpu_torch.models.groth16.prove" in out
     assert "distributed_groth16_tpu_torch.frontend.zkey" in out
     assert "distributed_groth16_tpu_torch.verifier.batch" in out
+    assert "distributed_groth16_tpu_torch.scheduler.batch_prover" in out
+    assert "distributed_groth16_tpu_torch.service.worker" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -164,8 +216,8 @@ def test_net_config_matches_the_jax_package(monkeypatch):
     for f in fields:
         assert (f.type, f.default) == ref_fields[f.name], f.name
     assert port.KNOBS == {k: v for k, v in ref.KNOBS.items()
-                          if k.startswith("DG16_NET_")
-                          or k in ("DG16_TRACE", "DG16_NO_CWASM")}
+                          if k.startswith(PORT_KNOB_PREFIXES)
+                          or k in PORT_KNOBS}
     assert dataclasses.asdict(port.NetConfig.from_env()) == \
         dataclasses.asdict(ref.NetConfig.from_env())
     overrides = {"DG16_NET_OP_TIMEOUT_S": "7.5",
@@ -188,6 +240,67 @@ def test_net_config_matches_the_jax_package(monkeypatch):
     monkeypatch.setenv("DG16_NO_CWASM", "1")
     assert port.env_flag("DG16_NO_CWASM") is ref.env_flag("DG16_NO_CWASM")
     assert port.env_flag("DG16_NO_CWASM") is True
+
+
+# the knobs the port reads: the transport's, the service plane's (service,
+# journal, batching scheduler, verify buckets, SLO), the telemetry and
+# log-spine copies', the store's and the frontend's
+PORT_KNOB_PREFIXES = ("DG16_NET_", "DG16_SERVICE_", "DG16_JOURNAL",
+                      "DG16_BATCH_", "DG16_SCHED_", "DG16_BREAKER_",
+                      "DG16_VERIFY_", "DG16_SLO_", "DG16_LOG_")
+PORT_KNOBS = ("DG16_TRACE", "DG16_NO_CWASM", "DG16_METRICS", "DG16_TRACE_OUT",
+              "DG16_AGG", "DG16_FLIGHT_DIR", "DG16_STORE",
+              "DG16_FLEET_REPLICA_ID")
+
+
+@pytest.mark.parametrize("cls", ["ServiceConfig", "SchedulerConfig",
+                                 "SLOConfig"])
+def test_service_configs_match_the_jax_package(cls, monkeypatch):
+    """The service plane's configs have the JAX package's fields and
+    defaults, and from_env() reads the same overrides into the same
+    values."""
+    import dataclasses
+
+    from distributed_groth16_tpu.utils import config as ref
+    from distributed_groth16_tpu_torch.utils import config as port
+
+    P, R = getattr(port, cls), getattr(ref, cls)
+    assert [(f.name, f.type, f.default) for f in dataclasses.fields(P)] == \
+        [(f.name, f.type, f.default) for f in dataclasses.fields(R)]
+    assert dataclasses.asdict(P.from_env()) == \
+        dataclasses.asdict(R.from_env())
+    overrides = {
+        "ServiceConfig": {"DG16_SERVICE_WORKERS": "5",
+                          "DG16_SERVICE_QUEUE_BOUND": "9",
+                          "DG16_SERVICE_CRS_CACHE": "0",
+                          "DG16_SERVICE_ROUND_RETRIES": "1",
+                          "DG16_SERVICE_RETRY_AFTER_S": "0.5",
+                          "DG16_SERVICE_JOB_HISTORY": "3",
+                          "DG16_JOURNAL": "1", "DG16_JOURNAL_FSYNC": "0",
+                          "DG16_JOURNAL_SEGMENT_RECORDS": "17",
+                          "DG16_FLEET_REPLICA_ID": "r7"},
+        "SchedulerConfig": {"DG16_BATCH_MAX": "8",
+                            "DG16_BATCH_LINGER_MS": "250",
+                            "DG16_SCHED_MESHES": "2",
+                            "DG16_SCHED_INFLIGHT": "11",
+                            "DG16_SCHED_POISON_RETRIES": "4",
+                            "DG16_BREAKER_THRESHOLD": "0",
+                            "DG16_BREAKER_COOLDOWN_S": "1.5",
+                            "DG16_VERIFY_BATCH_MAX": "1",
+                            "DG16_VERIFY_LINGER_MS": "3"},
+        "SLOConfig": {"DG16_SLO_TARGET_S": "2",
+                      "DG16_SLO_TARGETS": "prove=30, mpc_prove=120",
+                      "DG16_SLO_OBJECTIVE": "0.9",
+                      "DG16_SLO_WINDOW_S": "60", "DG16_SLO_SAMPLE_S": "0.25"},
+    }[cls]
+    for k, v in overrides.items():
+        monkeypatch.setenv(k, v)
+    got = dataclasses.asdict(P.from_env())
+    assert got == dataclasses.asdict(R.from_env())
+    assert got != dataclasses.asdict(P())
+    for name in ("env_str", "env_int"):
+        assert getattr(port, name)("DG16_STORE", 3) == \
+            getattr(ref, name)("DG16_STORE", 3)
 
 
 def _code_of(path: pathlib.Path) -> str:
@@ -224,8 +337,22 @@ BLS_FIXED = {"bls12_377": set(),
 
 
 def _host_part(path: pathlib.Path, skip: set) -> list[str]:
+    """Top-level statements after the docstring, minus the named ones; a
+    class is compared member by member, so "Class.method" skips one."""
     body = ast.parse(path.read_text()).body[1:]  # after the docstring
-    return [ast.dump(n) for n in body if getattr(n, "name", None) not in skip]
+    out = []
+    for n in body:
+        name = getattr(n, "name", None)
+        if name in skip:
+            continue
+        if isinstance(n, ast.ClassDef):
+            out.append(f"class {name}" + "".join(
+                ast.dump(x) for x in n.bases + n.decorator_list))
+            out += [ast.dump(m) for m in n.body
+                    if f"{name}.{getattr(m, 'name', None)}" not in skip]
+        else:
+            out.append(ast.dump(n))
+    return out
 
 
 def _functions(path: pathlib.Path) -> set:
@@ -242,6 +369,69 @@ def test_bls_host_part_is_an_exact_copy(mod):
     names, ported = _functions(ref), _functions(port)
     assert BLS_DEVICE[mod] <= names <= ported
     assert ported - names <= BLS_FIXED[mod]
+
+
+@pytest.mark.parametrize("sub, mod", [
+    (sub, mod) for sub, mods in sorted(SERVICE_COPIES.items())
+    for mod in mods
+])
+def test_service_plane_module_is_an_exact_copy(sub, mod):
+    ref = ROOT / "distributed_groth16_tpu" / sub / f"{mod}.py"
+    assert (PORT / sub / f"{mod}.py").read_bytes() == ref.read_bytes()
+
+
+@pytest.mark.parametrize("rel", sorted(REWORDED))
+def test_reworded_copy_differs_only_where_it_names_a_pr(rel):
+    ref = (ROOT / "distributed_groth16_tpu" / rel).read_text()
+    port = (PORT / rel).read_text()
+    assert port != ref
+    for jax_text, port_text in REWORDED[rel]:
+        assert ref.count(jax_text) == 1 and port.count(port_text) == 1
+        ref = ref.replace(jax_text, port_text)
+    assert port == ref
+
+
+# modules whose host part is copied: the members named here are the
+# port's own (a device= for the witness, the compiled circuit and the
+# store's keys)
+HOST_PART = {
+    "service/worker.py": {"ProofExecutor.__init__", "ProofExecutor._run"},
+    "api/store.py": {"CircuitStore.__init__", "CircuitStore.save_circuit",
+                     "CircuitStore.load"},
+}
+
+
+@pytest.mark.parametrize("rel", sorted(HOST_PART))
+def test_service_host_part_is_an_exact_copy(rel):
+    ref = ROOT / "distributed_groth16_tpu" / rel
+    port = PORT / rel
+    skip = HOST_PART[rel]
+    assert _host_part(port, skip) == _host_part(ref, skip)
+    assert _host_part(port, set()) != _host_part(ref, set())
+
+
+# copies that differ only in the package's own name: the logbus names the
+# logger it installs on and the module it reads the MPC job id from, the
+# phase timers the logger they write to (after the module docstring)
+RENAMED = {
+    "telemetry/logbus.py": ['PACKAGE_LOGGER = "distributed_groth16_tpu_torch"',
+                            '"distributed_groth16_tpu_torch.parallel.net"'],
+    "utils/timers.py": ['getLogger("distributed_groth16_tpu_torch")'],
+}
+
+
+@pytest.mark.parametrize("rel", sorted(RENAMED))
+def test_renamed_copy_differs_only_in_the_package_name(rel):
+    def body(text):
+        return text[text.index('"""', 3) + 3:]
+
+    ref = body((ROOT / "distributed_groth16_tpu" / rel).read_text())
+    port = body((PORT / rel).read_text())
+    for name in RENAMED[rel]:
+        assert port.count(name) == 1, name
+        port = port.replace(name, name.replace(
+            "distributed_groth16_tpu_torch", "distributed_groth16_tpu"))
+    assert port == ref
 
 
 _CONSTANTS = [
