@@ -114,7 +114,25 @@ result line):
      "mpc_prove" job through the per-job funnel, both equal to
      prove_single's. Logs the batch wall and per-proof time beside phase
      6's round, the split, device busy ms, peak memory, the jobs' phases
-     and the scheduler's stats.
+     and the scheduler's stats;
+ 12. the serving plane over HTTP on localhost (api/server.py, api/cli.py,
+     fleet/, telemetry/profiler.py), on phase 4's circuit and witness:
+     replica 1, an ApiServer on the card with batching off, runs
+     /save_circuit (setup on the card), /create_proof_without_mpc and
+     /create_proof_with_naive_mpc (both equal to phase 4's proof),
+     /verify_proof (true; false with a public input plus one), /healthz,
+     /readyz (buildInfo names the card) and /metrics (dg16_build_info,
+     device_memory_bytes); replica 2 on the same card and store, batching
+     on (batch_max 4), proves 4 /jobs/prove jobs; a POST /profile capture
+     on replica 1 while a prove job runs, whose .tar.gz Chrome trace holds
+     kernels 1, 3 and 4 and the job's load/witness/prove spans; a
+     FleetRouter over both replicas routes 4 jobs to both, then drains
+     replica 2, and one job goes straight to replica 1 beside one through
+     the router (the router's overhead); the CLI in a subprocess proves
+     against replica 1 and prints the router's fleet table. Every proof
+     equals phase 4's. Counters zeroed before the phase, read after.
+     Logs each route's wall ms, the save's setup ms, the batch's submit
+     to last DONE, the capture's artifact bytes and the phase's seconds.
 
 Output: phase lines, then a {"kernels": [...]} line (launches on the row's
 own path: phase 4 for the 8-word kernels, phase 7 for the 12-word ones;
@@ -122,8 +140,8 @@ launches_mpc, launches_bls and launches_mpc64 on the MPC, BLS and n = 64
 MPC paths; launches_star, summed over the ranks of phase 9's SHA-256
 star; launches_zkey over phase 10; launches_batch over phase 11's batch
 of 8 (kernels 1-3), launches_service_prove over its per-job prove job
-(kernels 1, 3 and 4); ms, the device time of one launch at the row's
-shape;
+(kernels 1, 3 and 4), launches_http over phase 12 (kernels 1-4); ms,
+the device time of one launch at the row's shape;
 ms_per_proof, ms_per_mpc_proof, ms_per_bls_path, ms_per_mpc64_proof and
 ms_per_batch, the summed device time in one warm proof, one MPC proof
 (pack + round), each BLS path, one n = 64 MPC proof and phase 11's batch
@@ -2366,6 +2384,383 @@ def phase_batch(dev, ctx, statement=fold_statement, B=8, small=3,
     return launches, launches_job, per_kernel
 
 
+def artifact_names(blob: bytes) -> tuple:
+    """The event names of a profiler artifact's Chrome trace and the
+    kernels-line rows of its device kernels."""
+    import io
+    import tarfile
+
+    with tarfile.open(fileobj=io.BytesIO(blob)) as tar:
+        member = [m for m in tar.getmembers()
+                  if m.name.endswith("/trace.json")]
+        if len(member) != 1:
+            raise AssertionError(f"artifact holds {tar.getnames()}")
+        trace = json.load(tar.extractfile(member[0]))
+    events = trace.get("traceEvents", [])
+    names = {e.get("name") for e in events}
+    rows = {}
+    for e in events:
+        row = kernel_row(e.get("name", "")) if e.get("cat") == "kernel" else None
+        if row:
+            rows[row] = rows.get(row, 0) + 1
+    return names, rows, len(events)
+
+
+HTTP_KERNELS = ("limb_add_g1", "limb_add_g2", "limb_horner_g1",
+                "limb_horner_g2", "ntt_small")
+PROFILE_KERNELS = ("limb_add_g1", "limb_horner_g1", "ntt_small")
+
+
+def phase_http(dev, ctx, n_batch=4, n_router=4, profile_s=3.0, n_pairs=3):
+    """Phase 12: the serving plane above the job service, on phase 4's
+    circuit and witness, over HTTP on localhost. (a) Replica 1, an
+    ApiServer on the card with batching off: /save_circuit (setup on the
+    card), /create_proof_without_mpc and /create_proof_with_naive_mpc
+    (the per-job funnel: prove_single, and the 8-party round), each proof
+    equal to phase 4's prove_single proof; /verify_proof true, and false
+    with a public input plus one; /healthz, /readyz (buildInfo names the
+    card), /metrics (dg16_build_info, device_memory_bytes). (b) Replica 2
+    on the same card and store, batching on (batch_max 4): /readyz
+    devices 1; n_batch /jobs/prove all DONE, each result equal. (c) A
+    profiler capture on replica 1 (POST /profile) while a prove job runs:
+    its .tar.gz holds kernels 1, 3 and 4 and the job's spans. (d) A
+    FleetRouter over both replicas: n_router jobs through its /jobs/prove
+    DONE with equal proofs, landing on both replicas; then replica 2
+    drained through the router, and n_pairs times one job direct to
+    replica 1 beside one through the router (each job's submit-to-DONE
+    beside its runtime on the replica, and the router's spans). (e) The CLI
+    in a subprocess: `prove` against replica 1 writes the same proof
+    bytes, `fleet status` against the router prints both replicas.
+    Returns the kernels' launches over the phase."""
+    import asyncio
+
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from distributed_groth16_tpu_torch.api.server import ApiServer
+    from distributed_groth16_tpu_torch.api.store import CircuitStore
+    from distributed_groth16_tpu_torch.fleet import FleetRouter
+    from distributed_groth16_tpu_torch.fleet.router import ROUTER_PID
+    from distributed_groth16_tpu_torch.frontend.ark_serde import (
+        proof_to_bytes,
+    )
+    from distributed_groth16_tpu_torch.frontend.readers import (
+        write_r1cs, write_wtns,
+    )
+    from distributed_groth16_tpu_torch.ops import _cuda
+    from distributed_groth16_tpu_torch.utils.config import (
+        FleetConfig, SchedulerConfig, ServiceConfig, TenantConfig,
+    )
+
+    want = proof_to_bytes(ctx["proof"])
+    r1cs_blob, wtns = write_r1cs(ctx["r1cs"]), write_wtns(ctx["z"])
+    pubs = [str(x) for x in ctx["pubs"]]
+    out = {"route_ms": {}}
+
+    async def start(app):
+        runner = web.AppRunner(app)
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", 0).start()
+        return runner, f"http://127.0.0.1:{runner.addresses[0][1]}"
+
+    async def main(tmp):
+        http = aiohttp.ClientSession(
+            timeout=aiohttp.ClientTimeout(total=600))
+
+        async def call(name, method, url, **kw):
+            t0 = time.perf_counter()
+            async with http.request(method, url, **kw) as resp:
+                body = (await resp.read() if name == "profile_artifact"
+                        else await resp.text() if name == "metrics"
+                        else await resp.json(content_type=None))
+                status = resp.status
+            out["route_ms"].setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return status, body
+
+        async def done(base, jid, poll_s=0.01):
+            while True:
+                status, body = await call("job_status", "GET",
+                                          f"{base}/jobs/{jid}")
+                if status == 200 and body["state"] in ("DONE", "FAILED",
+                                                       "CANCELLED"):
+                    if body["state"] != "DONE":
+                        raise AssertionError(f"job {jid}: {body}")
+                    return body
+                await asyncio.sleep(poll_s)
+
+        async def result(base, jid):
+            status, body = await call("job_result", "GET",
+                                      f"{base}/jobs/{jid}/result")
+            if status != 200 or bytes(body["proof"]) != want:
+                raise AssertionError(f"job {jid}'s proof differs from "
+                                     f"prove_single's: {status}")
+
+        def job_form():
+            return {"circuit_id": cid, "witness_file": wtns}
+
+        r1 = ApiServer(CircuitStore(tmp, device=dev),
+                       ServiceConfig(workers=2, replica_id="r-1"),
+                       SchedulerConfig(batch_max=1), device=dev)
+        run1, url1 = await start(r1.app())
+        runners = [run1]
+        try:
+            # (a) the legacy routes on replica 1
+            status, body = await call(
+                "save_circuit", "POST", f"{url1}/save_circuit",
+                data={"circuit_name": "sha256", "r1cs_file": r1cs_blob})
+            if status != 200:
+                raise AssertionError(f"save_circuit: {body}")
+            cid = body["circuitId"]
+            out["save_setup_ms"] = body["timeTaken"]
+            for route in ("create_proof_without_mpc",
+                          "create_proof_with_naive_mpc"):
+                status, body = await call(route, "POST", f"{url1}/{route}",
+                                          data=job_form())
+                if status != 200 or bytes(body["proof"]) != want:
+                    raise AssertionError(f"{route} differs from "
+                                         f"prove_single's: {status}")
+                out[f"{route}_phases"] = body.get("phases")
+            for publics, valid in ((pubs, True),
+                                   ([str(int(pubs[0]) + 1)] + pubs[1:],
+                                    False)):
+                status, body = await call(
+                    "verify_proof", "POST", f"{url1}/verify_proof",
+                    json={"circuitId": cid, "proof": list(want),
+                          "publicInputs": publics})
+                if status != 200 or body["isValid"] is not valid:
+                    raise AssertionError(f"verify_proof: {status} {body}")
+            status, health = await call("healthz", "GET", f"{url1}/healthz")
+            if status != 200 or health["status"] != "ok":
+                raise AssertionError(f"/healthz: {health}")
+            status, ready = await call("readyz", "GET", f"{url1}/readyz")
+            build = ready["buildInfo"]
+            card = torch.cuda.get_device_name(0) if dev.type == "cuda" \
+                else None
+            if status != 200 or card is not None and (
+                    build["backend"], build["deviceKind"]) != ("cuda", card):
+                raise AssertionError(f"/readyz: {ready}")
+            out["build_info"] = build
+
+            # (b) replica 2: same card and store, batching on
+            r2 = ApiServer(CircuitStore(tmp, device=dev),
+                           ServiceConfig(workers=2, replica_id="r-2"),
+                           SchedulerConfig(batch_max=n_batch,
+                                           batch_linger_ms=500.0),
+                           device=dev)
+            run2, url2 = await start(r2.app())
+            runners.append(run2)
+            status, ready2 = await call("readyz", "GET", f"{url2}/readyz")
+            if status != 200 or ready2["devices"] != 1:
+                raise AssertionError(f"replica 2 /readyz: {ready2}")
+            t0 = time.perf_counter()
+            ids = []
+            for _ in range(n_batch):
+                status, body = await call("jobs_prove", "POST",
+                                          f"{url2}/jobs/prove",
+                                          data=job_form())
+                if status != 202:
+                    raise AssertionError(f"/jobs/prove: {status} {body}")
+                ids.append(body["jobId"])
+            for jid in ids:
+                await done(url2, jid)
+            out["batch_submit_to_last_done_ms"] = (
+                time.perf_counter() - t0) * 1e3
+            for jid in ids:
+                await result(url2, jid)
+            _, st2 = await call("stats", "GET", f"{url2}/stats")
+            out["batch_scheduler"] = {
+                k: st2["scheduler"].get(k)
+                for k in ("batchesDispatched", "jobsBatched", "jobsPoisoned")}
+
+            # (c) a profiler capture on replica 1 while a prove job runs
+            status, cap = await call("profile_start", "POST",
+                                     f"{url1}/profile",
+                                     json={"durationS": profile_s})
+            if status != 202:
+                raise AssertionError(f"POST /profile: {status} {cap}")
+            status, busy = await call("profile_start", "POST",
+                                      f"{url1}/profile",
+                                      json={"durationS": 1})
+            if status != 409:
+                raise AssertionError(f"a second capture got {status}")
+            t0 = time.perf_counter()
+            status, body = await call("jobs_prove", "POST",
+                                      f"{url1}/jobs/prove", data=job_form())
+            await done(url1, body["jobId"])
+            job_s = time.perf_counter() - t0
+            await result(url1, body["jobId"])
+            while True:
+                status, blob = await call("profile_artifact", "GET",
+                                          f"{url1}/profile/{cap['id']}")
+                if status != 202:
+                    break
+                await asyncio.sleep(0.05)
+            if status != 200:
+                raise AssertionError(f"GET /profile/{cap['id']}: {status}")
+            t0 = time.perf_counter()
+            names, rows, n_events = artifact_names(blob)
+            missing = ({"job", "load", "witness", "prove"} - names) | (
+                set(PROFILE_KERNELS) - set(rows) if dev.type == "cuda"
+                else set())
+            if missing:
+                raise AssertionError(f"the capture lacks {sorted(missing)}")
+            _, prof = await call("profile_status", "GET", f"{url1}/profile")
+            out["profile"] = dict(
+                artifact_bytes=len(blob), events=n_events,
+                kernel_events=rows, job_s_under_capture=job_s,
+                read_s=time.perf_counter() - t0,
+                capture=prof["captures"][-1])
+
+            # (d) the fleet router over both replicas
+            router = FleetRouter(FleetConfig(replicas=((url1, None),
+                                                       (url2, None)),
+                                             poll_s=0.2), TenantConfig())
+            run3, url3 = await start(router.app())
+            runners.append(run3)
+            while router.registry.active_count() < 2:
+                await asyncio.sleep(0.05)
+            before = []
+            for url in (url1, url2):
+                _, st = await call("stats", "GET", f"{url}/stats")
+                before.append(st["queue"]["submitted"])
+            t0 = time.perf_counter()
+            ids = []
+            for _ in range(n_router):
+                status, body = await call("router_jobs_prove", "POST",
+                                          f"{url3}/jobs/prove",
+                                          data=job_form(),
+                                          headers={"X-DG16-Tenant": "smoke"})
+                if status != 202:
+                    raise AssertionError(f"router: {status} {body}")
+                ids.append(body["jobId"])
+            for jid in ids:
+                await done(url3, jid)
+            out["router_submit_to_last_done_ms"] = (
+                time.perf_counter() - t0) * 1e3
+            for jid in ids:
+                await result(url3, jid)
+            landed = []
+            for url, b in zip((url1, url2), before):
+                _, st = await call("stats", "GET", f"{url}/stats")
+                landed.append(st["queue"]["submitted"] - b)
+            if sum(landed) != n_router or 0 in landed:
+                raise AssertionError(f"router jobs landed {landed}")
+            _, fleet = await call("fleet_stats", "GET", f"{url3}/fleet/stats")
+            if sorted(r["replicaId"] for r in fleet["replicas"]) != \
+                    ["r-1", "r-2"]:
+                raise AssertionError(f"/fleet/stats: {fleet['replicas']}")
+            out["router_landed"] = dict(zip(("r-1", "r-2"), landed))
+            out["fleet_replicas"] = [
+                {k: r[k] for k in ("replicaId", "state", "score", "devices",
+                                   "version")} for r in fleet["replicas"]]
+            # the router's overhead: replica 2 drained, one job straight
+            # to replica 1 beside one through the router (it lands there)
+            status, body = await call("fleet_drain", "POST",
+                                      f"{url3}/fleet/drain/r-2")
+            if status != 200:
+                raise AssertionError(f"fleet drain: {status} {body}")
+            # each job's submit-to-DONE beside its own runtime on the
+            # replica (the DTO's startedAt to finishedAt), and a routed
+            # job's router-tier spans (admission, queue, dispatch)
+            walls = {}
+            for name, base in (("direct", url1), ("routed", url3)) * n_pairs:
+                t0 = time.perf_counter()
+                _, body = await call("overhead_submit", "POST",
+                                     f"{base}/jobs/prove", data=job_form())
+                dto = await done(base, body["jobId"])
+                wall = (time.perf_counter() - t0) * 1e3
+                run = (dto["finishedAt"] - dto["startedAt"]) * 1e3
+                rec = dict(wall_ms=wall, runtime_ms=run,
+                           beyond_runtime_ms=wall - run, phases=dto["phases"])
+                if name == "routed":
+                    _, tr = await call(
+                        "fleet_job_trace", "GET",
+                        f"{url3}/fleet/jobs/{body['jobId']}/trace")
+                    spans = {}
+                    for e in tr["traceEvents"]:
+                        if e.get("pid") == ROUTER_PID and e.get("ph") == "X":
+                            spans[e["name"]] = spans.get(e["name"], 0.0) + \
+                                e["dur"] / 1e3
+                    rec["router_spans_ms"] = spans
+                walls.setdefault(name, []).append(rec)
+                await result(base, body["jobId"])
+            out["submit_to_done"] = walls
+
+            # (e) the CLI in a subprocess
+            with tempfile.TemporaryDirectory() as d:
+                wpath, ppath = os.path.join(d, "w.wtns"), os.path.join(
+                    d, "proof.bin")
+                with open(wpath, "wb") as f:
+                    f.write(wtns)
+                cli = [sys.executable, "-m",
+                       "distributed_groth16_tpu_torch.api.cli"]
+                here = os.path.dirname(os.path.abspath(__file__))
+                t0 = time.perf_counter()
+                proc = await asyncio.create_subprocess_exec(
+                    *cli, "--url", url1, "prove", "--circuit-id", cid,
+                    "--witness", wpath, "--out", ppath, cwd=here,
+                    stdout=asyncio.subprocess.PIPE,
+                    stderr=asyncio.subprocess.PIPE)
+                so, se = await proc.communicate()
+                out["cli_prove_ms"] = (time.perf_counter() - t0) * 1e3
+                if proc.returncode != 0:
+                    raise AssertionError(f"cli prove: {se.decode()[-2000:]}")
+                with open(ppath, "rb") as f:
+                    if f.read() != want:
+                        raise AssertionError("the CLI's proof differs")
+                proc = await asyncio.create_subprocess_exec(
+                    *cli, "--url", url3, "fleet", "status", cwd=here,
+                    stdout=asyncio.subprocess.PIPE,
+                    stderr=asyncio.subprocess.PIPE)
+                so, se = await proc.communicate()
+                table = so.decode()
+                if proc.returncode != 0 or "r-1" not in table \
+                        or "r-2" not in table:
+                    raise AssertionError(f"cli fleet status: {table} "
+                                         f"{se.decode()[-2000:]}")
+                out["cli_fleet_status"] = table.splitlines()
+
+            _, metrics = await call("metrics", "GET", f"{url1}/metrics")
+        finally:
+            await http.close()
+            for runner in reversed(runners):
+                await runner.cleanup()
+        for series in ("dg16_build_info{", "device_memory_bytes{"):
+            if series not in metrics and (dev.type == "cuda"
+                                          or series.startswith("dg16")):
+                raise AssertionError(f"/metrics lacks {series}")
+
+    saved = os.environ.get("DG16_DEVMEM_SAMPLE_S")
+    os.environ["DG16_DEVMEM_SAMPLE_S"] = "0.5"
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            asyncio.run(main(tmp))
+    finally:
+        if saved is None:
+            del os.environ["DG16_DEVMEM_SAMPLE_S"]
+        else:
+            os.environ["DG16_DEVMEM_SAMPLE_S"] = saved
+    launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    out["seconds"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        for k in HTTP_KERNELS:
+            if launches[k] == 0:
+                raise AssertionError(f"the HTTP path never launched {k}")
+    out["route_ms"] = {k: dict(n=len(v), median=statistics.median(v),
+                               max=max(v))
+                       for k, v in out["route_ms"].items()}
+    out["launches_http"] = launches
+    log("http: " + json.dumps(out))
+    n = 2 + n_batch + 1 + n_router + 2 * n_pairs + 1
+    log(f"http: {n} proofs over HTTP equal prove_single's")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2432,6 +2827,8 @@ def main() -> int:
     lap("phase 10")
     launches_batch, launches_job, per_batch_ms = phase_batch(dev, ctx)
     lap("phase 11")
+    launches_http = phase_http(dev, ctx)
+    lap("phase 12")
 
     # every kernel launches on at least one path: kernel 2 (double) only on
     # the MPC and BLS paths' ladders, kernel 4 (ntt_small) only on the main
@@ -2458,6 +2855,7 @@ def main() -> int:
             launches_zkey=launches_zkey[key],
             launches_batch=launches_batch[key],
             launches_service_prove=launches_job[key],
+            launches_http=launches_http[key],
             launches_by_bls_path={p: r["launches"].get(key, 0)
                                   for p, r in bls.items()},
             max_abs_err=err, match=err == 0, ms=e["ms"], kernel_ms=e["ms"],
@@ -2490,7 +2888,8 @@ def main() -> int:
         if (row["launches"] + row["launches_mpc"] + row["launches_bls"]
                 + row["launches_mpc64"] + row["launches_star"]
                 + row["launches_zkey"] + row["launches_batch"]
-                + row["launches_service_prove"]) == 0:
+                + row["launches_service_prove"]
+                + row["launches_http"]) == 0:
             raise AssertionError(f"no path launched {key}")
         rows.append(row)
     print(json.dumps({"kernels": rows}))

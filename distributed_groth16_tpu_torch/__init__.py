@@ -21,9 +21,12 @@ layout and names so each module has an obvious counterpart:
                the worker pool and its proof executor
     scheduler/ the batching scheduler: bucketer, placement over the
                cards, the batch prover
-    api/       the circuit store (the HTTP server comes later)
+    api/       the circuit store, the HTTP server (aiohttp) and its CLI
+    fleet/     the fleet router over N servers: tenant admission,
+               replica registry, metrics federation, journal handoff
     telemetry/ metrics, spans, the log spine, flight recorder, device
-               memory and transfer accounting
+               memory and transfer accounting, build identity, and
+               on-demand torch.profiler captures
     utils/     the DG16_* knobs and configs, serde, certs, phase timers
 
 Rules the port keeps:
@@ -38,3 +41,5 @@ Rules the port keeps:
     a wrapper launches its kernel or raises. Kernels are compiled with
     nvcc at their first use, never at import.
 """
+
+__version__ = "0.1.0"

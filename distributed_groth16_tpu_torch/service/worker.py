@@ -72,7 +72,7 @@ class ProofExecutor:
         # the verification plane's executor (verifier/executor.py): owns
         # the PreparedVerifyingKey cache the same way this executor owns
         # the packed-CRS cache, sized by the same knob
-        self.verifier = VerifyExecutor(store)
+        self.verifier = VerifyExecutor(store, device=device)
         self.verifier.pvk_cache.capacity = self.cfg.crs_cache_size
 
     # -- witness -------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Configuration: the DG16_* knobs and the structured configs — the
-part of the JAX package's utils/config.py that the port has so far.
+"""Configuration: the DG16_* knobs and the structured configs, the
+counterpart of the JAX package's utils/config.py.
 
   * KNOBS, the registry of the DG16_* environment knobs the port reads,
     with the JAX package's text, and the typed accessors env_str,
@@ -9,13 +9,18 @@ part of the JAX package's utils/config.py that the port has so far.
   * ServiceConfig, SchedulerConfig and SLOConfig, the job service's,
     batching scheduler's and SLO monitor's knobs, with the JAX package's
     fields, defaults and overrides;
+  * FleetConfig and TenantConfig, the fleet router's and its tenant
+    admission's knobs (DG16_FLEET_*, DG16_TENANT_*), the JAX package's
+    text;
   * read_address_file: the address-file format of network-address/4|8,
     one `host:port` per rank.
 
-Opt and parse_opt come with their first caller: the examples take the
-JAX examples' flags (examples/_star.py), not the reference's structopt
-`Opt {id, input, l, t, m}`. FleetConfig and TenantConfig come with the
-fleet plane.
+The JAX package's knobs of the perf observatory, the roofline, the JAX
+compilation cache and bench.py are not declared: nothing in the port
+reads them. DG16_PROF_DIR names torch.profiler where the JAX text names
+the XLA profiler. The JAX package's Opt and parse_opt are left out: no
+entry point of the port parses them (the examples take their own flags,
+examples/_star.py).
 """
 
 from __future__ import annotations
@@ -66,8 +71,25 @@ KNOBS: dict[str, str] = {
     "DG16_LOG_JSON": "console handler emits JSON lines",
     "DG16_LOG_STORM_BURST": "per-template records before suppression",
     "DG16_LOG_STORM_RATE": "suppressed-template refill, records/sec, <=0 off",
+    # device observatory (docs/OBSERVABILITY.md "Device observatory")
+    "DG16_PROF_DIR": "on-demand torch.profiler artifact directory",
+    "DG16_PROF_MAX_S": "cap on one POST /profile capture duration",
+    "DG16_DEVMEM_SAMPLE_S": "device-memory sampler period, <=0 off",
     # fleet plane (docs/FLEET.md)
+    "DG16_FLEET_REPLICAS": "router replica set: url[=journal-dir] CSV",
+    "DG16_FLEET_POLL_S": "router discovery poll period seconds",
+    "DG16_FLEET_EJECT_THRESHOLD": "consecutive replica failures before ejection, <=0 off",
+    "DG16_FLEET_COOLDOWN_S": "ejected-replica cooldown before a half-open probe",
+    "DG16_FLEET_PENDING_BOUND": "router dispatch backlog bound before 429",
+    "DG16_FLEET_WEIGHTS": "priority-class weights, class=weight CSV",
     "DG16_FLEET_REPLICA_ID": "this replica's id in /readyz (default: random)",
+    "DG16_FLEET_HISTORY": "terminal routed jobs the router keeps addressable",
+    "DG16_FLEET_ANOMALY_FACTOR": "replica p95/burn vs fleet-median anomaly factor, <=0 off",
+    # tenant admission (docs/FLEET.md)
+    "DG16_TENANT_RATE": "default tenant token-bucket refill, jobs/sec, <=0 off",
+    "DG16_TENANT_BURST": "default tenant token-bucket capacity",
+    "DG16_TENANT_INFLIGHT": "default tenant in-flight job quota, <=0 off",
+    "DG16_TENANT_LIMITS": "per-tenant overrides, tenant=rate:burst:inflight CSV",
     # SLO burn-rate monitoring (docs/OBSERVABILITY.md)
     "DG16_SLO_TARGET_S": "default job-latency SLO target, <=0 off",
     "DG16_SLO_TARGETS": "per-kind latency targets, kind=seconds CSV",
@@ -348,6 +370,182 @@ class SLOConfig:
             objective=env_float("DG16_SLO_OBJECTIVE", 0.99),
             window_s=env_float("DG16_SLO_WINDOW_S", 3600.0),
             sample_s=env_float("DG16_SLO_SAMPLE_S", 5.0),
+        )
+
+
+@dataclass(frozen=True)
+class FleetConfig:
+    """Fleet-router knobs (fleet/, docs/FLEET.md) — the front door
+    spreading `/jobs/prove` traffic across N replica ApiServers.
+
+      * replicas — the replica set: ((base_url, journal_dir | None), ...)
+        parsed from the DG16_FLEET_REPLICAS CSV. Each entry is a base URL,
+        optionally `=journal-dir` suffixed: with a journal directory the
+        router can hand a dead/draining replica's journaled jobs off to a
+        healthy one (journal-backed handoff); without one, handoff for
+        that replica is impossible and its accepted jobs ride out its own
+        restart replay instead.
+      * poll_s — discovery period: how often the router polls each
+        replica's /readyz capacity document and sweeps routed jobs.
+      * eject_threshold — consecutive failed polls/dispatches before a
+        replica is EJECTED from rotation (breaker-style, same
+        closed -> open cooldown -> half-open shape as the mesh breakers);
+        <= 0 disables ejection.
+      * eject_cooldown_s — seconds an ejected replica cools down before
+        one half-open probe poll may readmit it.
+      * pending_bound — dispatch-backlog bound: admitted jobs waiting for
+        a replica beyond this are rejected 429 at the router door.
+      * weights — priority-class weighted-fair dequeue weights
+        (docs/FLEET.md "Priority classes"); classes absent from the map
+        dispatch at weight 1.
+      * history — terminal routed jobs kept addressable through the
+        router (same eviction contract as DG16_SERVICE_JOB_HISTORY).
+      * anomaly_factor — fleet-anomaly hook (docs/OBSERVABILITY.md
+        "Fleet observatory"): a replica whose federated job p95 or SLO
+        burn rate exceeds the fleet MEDIAN by this factor gets one
+        flight-recorder post-mortem per episode (trigger fleet_anomaly).
+        <= 0 disables the hook.
+    """
+
+    replicas: tuple = ()
+    poll_s: float = 2.0
+    eject_threshold: int = 3
+    eject_cooldown_s: float = 15.0
+    pending_bound: int = 256
+    weights: tuple = (("interactive", 8), ("batch", 3), ("bulk", 1))
+    history: int = 4096
+    anomaly_factor: float = 3.0
+
+    def weight_for(self, priority: str) -> int:
+        for k, v in self.weights:
+            if k == priority:
+                return v
+        return 1
+
+    @property
+    def priorities(self) -> tuple:
+        return tuple(k for k, _ in self.weights)
+
+    @staticmethod
+    def parse_replicas(spec: str) -> tuple:
+        """`http://h1:8001=/var/j1,http://h2:8002` ->
+        (("http://h1:8001", "/var/j1"), ("http://h2:8002", None))."""
+        out = []
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            url, _, jdir = part.partition("=")
+            out.append((url.rstrip("/"), jdir or None))
+        return tuple(out)
+
+    @staticmethod
+    def parse_weights(spec: str) -> tuple:
+        """`interactive=8,batch=3,bulk=1` -> (("interactive", 8), ...).
+        Malformed entries raise ValueError (loud boot > silent default)."""
+        out = []
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            cls, _, w = part.partition("=")
+            if not cls or not w:
+                raise ValueError(
+                    f"bad DG16_FLEET_WEIGHTS entry {part!r} "
+                    "(expected class=weight)"
+                )
+            out.append((cls.strip(), int(w)))
+        return tuple(out)
+
+    @staticmethod
+    def from_env() -> "FleetConfig":
+        weights = env_str("DG16_FLEET_WEIGHTS", "")
+        return FleetConfig(
+            replicas=FleetConfig.parse_replicas(
+                env_str("DG16_FLEET_REPLICAS", "")
+            ),
+            poll_s=env_float("DG16_FLEET_POLL_S", 2.0),
+            eject_threshold=env_int("DG16_FLEET_EJECT_THRESHOLD", 3),
+            eject_cooldown_s=env_float("DG16_FLEET_COOLDOWN_S", 15.0),
+            pending_bound=env_int("DG16_FLEET_PENDING_BOUND", 256),
+            weights=(
+                FleetConfig.parse_weights(weights)
+                if weights
+                else FleetConfig.weights
+            ),
+            history=env_int("DG16_FLEET_HISTORY", 4096),
+            anomaly_factor=env_float("DG16_FLEET_ANOMALY_FACTOR", 3.0),
+        )
+
+
+@dataclass(frozen=True)
+class TenantConfig:
+    """Per-tenant admission knobs enforced at the router door
+    (fleet/tenants.py, docs/FLEET.md "Tenant admission").
+
+      * rate — default sustained submission rate (token-bucket refill,
+        jobs/second) per tenant; <= 0 disables rate limiting.
+      * burst — default token-bucket capacity (submissions a quiet tenant
+        may burst before the refill rate governs).
+      * inflight — default cap on a tenant's routed-but-not-terminal
+        jobs; <= 0 disables the in-flight quota.
+      * limits — per-tenant overrides from the DG16_TENANT_LIMITS CSV
+        (`acme=5:20:50` = rate 5/s, burst 20, inflight 50; empty slots
+        keep the defaults: `acme=:=:8` is rejected, `acme=::8` overrides
+        only inflight).
+    """
+
+    rate: float = 0.0
+    burst: int = 16
+    inflight: int = 0
+    limits: tuple = ()
+
+    def limits_for(self, tenant: str) -> tuple[float, int, int]:
+        """(rate, burst, inflight) for one tenant."""
+        for name, rate, burst, inflight in self.limits:
+            if name == tenant:
+                return (
+                    self.rate if rate is None else rate,
+                    self.burst if burst is None else burst,
+                    self.inflight if inflight is None else inflight,
+                )
+        return self.rate, self.burst, self.inflight
+
+    @staticmethod
+    def parse_limits(spec: str) -> tuple:
+        """`acme=5:20:50,free=0.5:2:4` ->
+        (("acme", 5.0, 20, 50), ...); empty slots stay None (defaults)."""
+        out = []
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            tenant, _, vals = part.partition("=")
+            if not tenant or not vals:
+                raise ValueError(
+                    f"bad DG16_TENANT_LIMITS entry {part!r} "
+                    "(expected tenant=rate:burst:inflight)"
+                )
+            slots = (vals.split(":") + ["", "", ""])[:3]
+            out.append(
+                (
+                    tenant.strip(),
+                    float(slots[0]) if slots[0] else None,
+                    int(slots[1]) if slots[1] else None,
+                    int(slots[2]) if slots[2] else None,
+                )
+            )
+        return tuple(out)
+
+    @staticmethod
+    def from_env() -> "TenantConfig":
+        return TenantConfig(
+            rate=env_float("DG16_TENANT_RATE", 0.0),
+            burst=env_int("DG16_TENANT_BURST", 16),
+            inflight=env_int("DG16_TENANT_INFLIGHT", 0),
+            limits=TenantConfig.parse_limits(
+                env_str("DG16_TENANT_LIMITS", "")
+            ),
         )
 
 

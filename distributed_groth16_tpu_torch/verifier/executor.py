@@ -94,14 +94,19 @@ class VerifyExecutor:
     cache) and runs verify/aggregate job bodies — always on a worker
     thread, like every executor."""
 
-    def __init__(self, store, pvk_cache: PvkCache | None = None):
+    def __init__(self, store, pvk_cache: PvkCache | None = None, device=None):
         self.store = store
         self.pvk_cache = pvk_cache if pvk_cache is not None else PvkCache()
+        # where the prepared keys (the gamma_abc stack the fold's MSM
+        # reads) live (None: the card)
+        self.device = device
 
     def load_pvk(self, circuit_id: str) -> PreparedVerifyingKey:
         def _prepare():
             _, pk = self.store.load(circuit_id)
-            return PreparedVerifyingKey.prepare(circuit_id, pk.vk)
+            return PreparedVerifyingKey.prepare(
+                circuit_id, pk.vk, device=self.device
+            )
 
         return self.pvk_cache.get_or_prepare(circuit_id, _prepare)
 

@@ -103,6 +103,16 @@ PORT_MODULES = [
     "distributed_groth16_tpu_torch.scheduler.batch_prover",
     "distributed_groth16_tpu_torch.api",
     "distributed_groth16_tpu_torch.api.store",
+    "distributed_groth16_tpu_torch.api.server",
+    "distributed_groth16_tpu_torch.api.cli",
+    "distributed_groth16_tpu_torch.telemetry.buildinfo",
+    "distributed_groth16_tpu_torch.telemetry.profiler",
+    "distributed_groth16_tpu_torch.fleet",
+    "distributed_groth16_tpu_torch.fleet.tenants",
+    "distributed_groth16_tpu_torch.fleet.registry",
+    "distributed_groth16_tpu_torch.fleet.federate",
+    "distributed_groth16_tpu_torch.fleet.router",
+    "distributed_groth16_tpu_torch.fleet.__main__",
 ]
 COPIES = ["constants", "refmath", "primemath", "glv", "pairing"]
 FRONTEND_COPIES = ["r1cs", "sha256", "wasm_vm", "witness_calculator",
@@ -111,7 +121,7 @@ FRONTEND_COPIES = ["r1cs", "sha256", "wasm_vm", "witness_calculator",
 MODEL_COPIES = ["reference"]
 UTIL_COPIES = ["serde", "certs"]
 PARALLEL_COPIES = ["faults"]
-VERIFIER_COPIES = ["executor", "__init__"]
+VERIFIER_COPIES = ["__init__"]
 # the service plane's copies, by subpackage
 SERVICE_COPIES = {
     "telemetry": ["metrics", "tracing", "__init__"],
@@ -168,6 +178,10 @@ def test_importing_the_port_loads_no_jax():
     assert "distributed_groth16_tpu_torch.verifier.batch" in out
     assert "distributed_groth16_tpu_torch.scheduler.batch_prover" in out
     assert "distributed_groth16_tpu_torch.service.worker" in out
+    assert "distributed_groth16_tpu_torch.api.server" in out
+    assert "distributed_groth16_tpu_torch.api.cli" in out
+    assert "distributed_groth16_tpu_torch.fleet.router" in out
+    assert "distributed_groth16_tpu_torch.telemetry.profiler" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -198,7 +212,7 @@ def test_net_config_matches_the_jax_package(monkeypatch):
     """The port's NetConfig has the JAX package's seven fields, with the
     same types and defaults, and from_env() reads the same DG16_NET_*
     overrides into the same values; the knobs the port reads are declared
-    with the JAX package's text."""
+    with the JAX package's text (but PORT_KNOB_TEXT)."""
     import dataclasses
 
     from distributed_groth16_tpu.utils import config as ref
@@ -215,7 +229,8 @@ def test_net_config_matches_the_jax_package(monkeypatch):
     assert [f.name for f in fields] == list(ref_fields)
     for f in fields:
         assert (f.type, f.default) == ref_fields[f.name], f.name
-    assert port.KNOBS == {k: v for k, v in ref.KNOBS.items()
+    assert port.KNOBS == {k: PORT_KNOB_TEXT.get(k, v)
+                          for k, v in ref.KNOBS.items()
                           if k.startswith(PORT_KNOB_PREFIXES)
                           or k in PORT_KNOBS}
     assert dataclasses.asdict(port.NetConfig.from_env()) == \
@@ -243,18 +258,24 @@ def test_net_config_matches_the_jax_package(monkeypatch):
 
 
 # the knobs the port reads: the transport's, the service plane's (service,
-# journal, batching scheduler, verify buckets, SLO), the telemetry and
-# log-spine copies', the store's and the frontend's
+# journal, batching scheduler, verify buckets, SLO), the fleet router's and
+# its tenant admission's, the telemetry and log-spine copies', the
+# profiler's and device-memory sampler's, the store's and the frontend's
 PORT_KNOB_PREFIXES = ("DG16_NET_", "DG16_SERVICE_", "DG16_JOURNAL",
                       "DG16_BATCH_", "DG16_SCHED_", "DG16_BREAKER_",
-                      "DG16_VERIFY_", "DG16_SLO_", "DG16_LOG_")
+                      "DG16_VERIFY_", "DG16_SLO_", "DG16_LOG_", "DG16_FLEET_",
+                      "DG16_TENANT_")
 PORT_KNOBS = ("DG16_TRACE", "DG16_NO_CWASM", "DG16_METRICS", "DG16_TRACE_OUT",
-              "DG16_AGG", "DG16_FLIGHT_DIR", "DG16_STORE",
-              "DG16_FLEET_REPLICA_ID")
+              "DG16_AGG", "DG16_FLIGHT_DIR", "DG16_STORE", "DG16_PROF_DIR",
+              "DG16_PROF_MAX_S", "DG16_DEVMEM_SAMPLE_S")
+# the port's own text where the JAX text names XLA
+PORT_KNOB_TEXT = {
+    "DG16_PROF_DIR": "on-demand torch.profiler artifact directory",
+}
 
 
 @pytest.mark.parametrize("cls", ["ServiceConfig", "SchedulerConfig",
-                                 "SLOConfig"])
+                                 "SLOConfig", "FleetConfig", "TenantConfig"])
 def test_service_configs_match_the_jax_package(cls, monkeypatch):
     """The service plane's configs have the JAX package's fields and
     defaults, and from_env() reads the same overrides into the same
@@ -292,6 +313,19 @@ def test_service_configs_match_the_jax_package(cls, monkeypatch):
                       "DG16_SLO_TARGETS": "prove=30, mpc_prove=120",
                       "DG16_SLO_OBJECTIVE": "0.9",
                       "DG16_SLO_WINDOW_S": "60", "DG16_SLO_SAMPLE_S": "0.25"},
+        "FleetConfig": {"DG16_FLEET_REPLICAS":
+                        "http://a:8001=/var/j1, http://b:8002/",
+                        "DG16_FLEET_POLL_S": "0.5",
+                        "DG16_FLEET_EJECT_THRESHOLD": "2",
+                        "DG16_FLEET_COOLDOWN_S": "7",
+                        "DG16_FLEET_PENDING_BOUND": "9",
+                        "DG16_FLEET_WEIGHTS": "interactive=5,bulk=2",
+                        "DG16_FLEET_HISTORY": "11",
+                        "DG16_FLEET_ANOMALY_FACTOR": "0"},
+        "TenantConfig": {"DG16_TENANT_RATE": "0.5",
+                         "DG16_TENANT_BURST": "3",
+                         "DG16_TENANT_INFLIGHT": "4",
+                         "DG16_TENANT_LIMITS": "acme=5:20:50,free=::8"},
     }[cls]
     for k, v in overrides.items():
         monkeypatch.setenv(k, v)
@@ -392,10 +426,12 @@ def test_reworded_copy_differs_only_where_it_names_a_pr(rel):
 
 
 # modules whose host part is copied: the members named here are the
-# port's own (a device= for the witness, the compiled circuit and the
-# store's keys)
+# port's own (a device= for the witness, the compiled circuit, the
+# verifier's prepared keys and the store's keys)
 HOST_PART = {
     "service/worker.py": {"ProofExecutor.__init__", "ProofExecutor._run"},
+    "verifier/executor.py": {"VerifyExecutor.__init__",
+                             "VerifyExecutor.load_pvk"},
     "api/store.py": {"CircuitStore.__init__", "CircuitStore.save_circuit",
                      "CircuitStore.load"},
 }
@@ -432,6 +468,144 @@ def test_renamed_copy_differs_only_in_the_package_name(rel):
         port = port.replace(name, name.replace(
             "distributed_groth16_tpu_torch", "distributed_groth16_tpu"))
     assert port == ref
+
+
+# the serving plane above the job service: copies of the JAX modules but
+# for the edits listed here (the port's device=, torch.profiler, the
+# package's own name, the phrases that name an earlier PR of the JAX
+# package) and, in the CLI, the cut perf group
+SERVER_EDITS = [
+    ('"""HTTP proving service — the mpc-api role (mpc-api/src/main.rs:795-805),\n'
+     'now fronting the proof-job service layer (service/, docs/SERVICE.md).\n',
+     '"""HTTP proving service — the mpc-api role (mpc-api/src/main.rs:795-805),\n'
+     'now fronting the proof-job service layer (service/, docs/SERVICE.md);\n'
+     'the counterpart of the JAX package\'s api/server.py, whose routes, DTOs,\n'
+     'status codes and headers it keeps. `ApiServer(..., device=None)` proves\n'
+     'on `device` (None: the card): it hands the device to the default\n'
+     'CircuitStore, the ProofExecutor and the batching scheduler\'s placement.\n'
+     'Run it with `python -m distributed_groth16_tpu_torch.api.server\n'
+     '[--device cpu]` (PORT, DG16_STORE and the DG16_SERVICE_* knobs as for the\n'
+     'JAX server).\n'),
+    ("start one bounded on-demand XLA profiler capture",
+     "start one bounded on-demand torch.profiler capture"),
+    ("        slo_cfg: SLOConfig | None = None,\n    ):\n"
+     "        self.store = store or CircuitStore()\n",
+     "        slo_cfg: SLOConfig | None = None,\n        device=None,\n    ):\n"
+     "        # jobs prove on `device` (None: the card): the default store's\n"
+     "        # keys, the executor's witnesses and circuits, the scheduler's meshes\n"
+     "        self.store = store or CircuitStore(device=device)\n"),
+    ("ProofExecutor(self.store, self.crs_cache, self.cfg)",
+     "ProofExecutor(\n            self.store, self.crs_cache, self.cfg, device=device\n        )"),
+    ("DG16_BATCH_MAX <= 1 the pool runs PR 2's per-job funnel exactly",
+     "DG16_BATCH_MAX <= 1 the pool runs its per-job funnel exactly"),
+    ("            from ..scheduler import BatchScheduler\n\n"
+     "            self.scheduler = BatchScheduler(\n"
+     "                self.executor, self.queue, self.sched_cfg,\n"
+     "                slo_target_s=self.slo_cfg.target_s,\n",
+     "            import torch\n\n"
+     "            from ..scheduler import BatchScheduler\n\n"
+     "            self.scheduler = BatchScheduler(\n"
+     "                self.executor, self.queue, self.sched_cfg,\n"
+     "                devices=None if device is None else [torch.device(device)],\n"
+     "                slo_target_s=self.slo_cfg.target_s,\n"),
+    ("on-demand XLA\n        # profiler (artifacts",
+     "on-demand\n        # torch.profiler (artifacts"),
+    ("telemetry_buildinfo.build_info()",
+     "telemetry_buildinfo.build_info(device)"),
+    ("single-flight XLA capture\n        mid-job; 409 while another runs. The start itself is cheap but\n"
+     "        runs off the loop (jax.profiler spins up collector threads).",
+     "single-flight torch.profiler\n        capture mid-job; 409 while another runs. The start runs off the\n"
+     "        loop (the capture's own thread starts the profiler and CUPTI)."),
+    ("a no-op data-wise on XLA:CPU, where the\n        backend reports no stats",
+     "a no-op data-wise on the CPU, which\n        reports no stats"),
+    ("def main() -> None:\n    telemetry_logbus.setup()  # console handler + ring for a real server\n"
+     "    port = int(os.environ.get(\"PORT\", \"8000\"))\n"
+     "    web.run_app(ApiServer().app(), port=port)\n",
+     "def main(argv=None) -> None:\n"
+     "    p = argparse.ArgumentParser(\n"
+     "        prog=\"python -m distributed_groth16_tpu_torch.api.server\"\n"
+     "    )\n"
+     "    p.add_argument(\"--device\", default=None,\n"
+     "                   help=\"where jobs prove: a torch device such as cpu or \"\n"
+     "                        \"cuda:1 (default: the card)\")\n"
+     "    args = p.parse_args(argv)\n"
+     "    telemetry_logbus.setup()  # console handler + ring for a real server\n"
+     "    port = int(os.environ.get(\"PORT\", \"8000\"))\n"
+     "    web.run_app(ApiServer(device=args.device).app(), port=port)\n"),
+    ("from __future__ import annotations\n\nimport asyncio\n",
+     "from __future__ import annotations\n\nimport argparse\nimport asyncio\n"),
+]
+
+# (start, end): the JAX module's text from `start` up to `end` is left
+# out of the port (the perf group, which comes with the perf observatory)
+CLI_CUTS = [
+    ("  python -m distributed_groth16_tpu.api.cli perf run [--quick]",
+     "  python -m distributed_groth16_tpu.api.cli profile capture"),
+    ("def cmd_perf_run(args) -> dict:", "def cmd_export_eth(args) -> dict:"),
+    ("    perf_p = sub.add_parser(\n", "    pp = sub.add_parser(\n"),
+]
+CLI_EDITS = [
+    ('"""CLI client — the zk-cli role (zk-cli/src/main.rs:30-208).\n',
+     '"""CLI client — the zk-cli role (zk-cli/src/main.rs:30-208); the\n'
+     'counterpart of the JAX package\'s api/cli.py, without its `perf` group\n'
+     '(the per-kernel perf observatory is not ported yet). It speaks HTTP\n'
+     'to a port server or router and needs no card itself.\n'),
+    ("python -m distributed_groth16_tpu.api.cli",
+     "python -m distributed_groth16_tpu_torch.api.cli"),
+    ('help="on-demand XLA profiling of a LIVE server "',
+     'help="on-demand torch.profiler profiling of a LIVE server "'),
+]
+
+# the fleet plane: copies but for the package's name and the phrases that
+# name an earlier PR of the JAX package
+FLEET_EDITS = {
+    "fleet/__init__.py": [
+        ("One crash-safe replica (PR 7) serves one device inventory;",
+         "One crash-safe replica serves one device inventory;"),
+        ("`python -m distributed_groth16_tpu.fleet`",
+         "`python -m distributed_groth16_tpu_torch.fleet`"),
+    ],
+    "fleet/__main__.py": [
+        ("`python -m distributed_groth16_tpu.fleet`",
+         "`python -m distributed_groth16_tpu_torch.fleet`"),
+    ],
+    "fleet/federate.py": [],
+    "fleet/registry.py": [
+        ("(slo_burn_rate > 1, PR 8)", "(slo_burn_rate > 1)"),
+        ("Ejection reuses the PR 7 breaker state machine shape",
+         "Ejection reuses the mesh breakers' state machine shape"),
+    ],
+    "fleet/router.py": [
+        ("is a full PR 7 crash-safe ApiServer",
+         "is a full crash-safe ApiServer"),
+        ("(NTP-style, the PR 4\n        # heartbeat shape)",
+         "(NTP-style, the\n        # transport heartbeat's shape)"),
+        ("# (the PR 4 add_party convention)",
+         "# (the aggregator's add_party convention)"),
+    ],
+    "fleet/tenants.py": [
+        ("One replica's queue bound (PR 2) protects a PROCESS;",
+         "One replica's queue bound protects a PROCESS;"),
+    ],
+}
+
+
+SERVING_COPIES = {"api/server.py": ([], SERVER_EDITS),
+                  "api/cli.py": (CLI_CUTS, CLI_EDITS)}
+SERVING_COPIES.update({rel: ([], e) for rel, e in FLEET_EDITS.items()})
+
+
+@pytest.mark.parametrize("rel", sorted(SERVING_COPIES))
+def test_serving_plane_copy_differs_only_in_its_listed_edits(rel):
+    ref = (ROOT / "distributed_groth16_tpu" / rel).read_text()
+    cuts, edits = SERVING_COPIES[rel]
+    for start, end in cuts:
+        i = ref.index(start)
+        ref = ref[:i] + ref[ref.index(end, i):]
+    for jax_text, port_text in edits:
+        assert jax_text in ref, jax_text
+        ref = ref.replace(jax_text, port_text)
+    assert (PORT / rel).read_text() == ref
 
 
 _CONSTANTS = [

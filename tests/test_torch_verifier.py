@@ -188,12 +188,10 @@ class _Job:
 
 def _executors(world):
     """The port's and the JAX package's VerifyExecutor over one stand-in
-    store. The port's cache is warmed with its CPU key: the executor's
-    own prepare puts a key on the card."""
+    store; the port's prepares its key on the CPU."""
     store = types.SimpleNamespace(load=lambda cid: (None, world["pk"]))
-    pex = pver.VerifyExecutor(store)
-    pex.pvk_cache.get_or_prepare(CID, lambda: world["pvk"])
-    return pex, jver.VerifyExecutor(store)
+    return (pver.VerifyExecutor(store, device=CPU),
+            jver.VerifyExecutor(store))
 
 
 def _outcome(out):
