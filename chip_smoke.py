@@ -132,7 +132,16 @@ result line):
      against replica 1 and prints the router's fleet table. Every proof
      equals phase 4's. Counters zeroed before the phase, read after.
      Logs each route's wall ms, the save's setup ms, the batch's submit
-     to last DONE, the capture's artifact bytes and the phase's seconds.
+     to last DONE, the capture's artifact bytes and the phase's seconds;
+ 13. the perf observatory (telemetry/perf.py, perf_kernels.py,
+     roofline.py, benchgate.py, the CLI's `perf` group): every registered
+     case at its quick size on the card, counters zeroed before and read
+     after; no record errors, every kernel launches (over the phase and
+     in the records' own launch counts), every device record has a work
+     model and stays at or under 105% of its roofline roof; the CLI's
+     `perf top`, `perf diff` and `perf roofline` read the run document,
+     benchgate passes it against its own baseline and fails a copy with
+     every median x3. Logs each record and the phase's seconds.
 
 Output: phase lines, then a {"kernels": [...]} line (launches on the row's
 own path: phase 4 for the 8-word kernels, phase 7 for the 12-word ones;
@@ -140,7 +149,8 @@ launches_mpc, launches_bls and launches_mpc64 on the MPC, BLS and n = 64
 MPC paths; launches_star, summed over the ranks of phase 9's SHA-256
 star; launches_zkey over phase 10; launches_batch over phase 11's batch
 of 8 (kernels 1-3), launches_service_prove over its per-job prove job
-(kernels 1, 3 and 4), launches_http over phase 12 (kernels 1-4); ms,
+(kernels 1, 3 and 4), launches_http over phase 12 (kernels 1-4),
+launches_perf over phase 13 (every kernel); ms,
 the device time of one launch at the row's shape;
 ms_per_proof, ms_per_mpc_proof, ms_per_bls_path, ms_per_mpc64_proof and
 ms_per_batch, the summed device time in one warm proof, one MPC proof
@@ -153,6 +163,7 @@ last {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -164,20 +175,12 @@ import time
 import types
 from contextlib import contextmanager
 
-# 32-bit integer multiply(-add) results per clock per SM on compute
-# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
-# throughput table); the clock is the card's max SM clock from nvidia-smi
-IMAD_PER_SM_CLOCK = 64
-# H100 SXM HBM3 bandwidth (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
-FQ_MULS = {"add": 14, "double": 9}  # per G1 point (RCB16); G2 triples
-
-
-def imad_per_fq_mul(nw: int) -> int:
-    """32-bit multiply-adds of one nw-word CIOS Montgomery product: 2 nw^2
-    32x32->64 products (a_j*b_i and m*p_j), two halves each, + nw for m:
-    264 at 8 words, 588 at 12."""
-    return 4 * nw * nw + nw
+from distributed_groth16_tpu_torch.telemetry.roofline import (
+    FQ_MULS, HBM_BYTES_PER_S, imad_peak, bound as roofline_bound,
+)
+from distributed_groth16_tpu_torch.utils.benchtools import (
+    cuda_ms, device_ms, device_spans,
+)
 
 SOURCES = {
     "limb_group": "distributed_groth16_tpu_torch/csrc/limb_group.cu",
@@ -211,80 +214,25 @@ def smi_sample() -> dict:
     return {k: float(v.split()[0]) for k, v in zip(keys, vals)}
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call over `reps` calls after one warm-up call."""
+def card_bound(sms: int, clock_mhz: float):
+    """roofline.bound at this card's peaks: its SM count and maximum SM
+    clock (nvidia-smi) for the multiply-add rate, the H100's HBM rate:
+    (nbytes, fq_muls, nw=8) -> (least ms, "bytes" | "operations")."""
+    return functools.partial(roofline_bound, peak={
+        "flops": imad_peak(sms, clock_mhz), "bw": HBM_BYTES_PER_S})
+
+
+def event_ms(fn):
+    """(fn(), the ms of that one call from CUDA events around it)."""
     import torch
 
-    fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    out = fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def device_ms(fn, reps: int, tries: int = 6) -> float:
-    """Median device time (ms) of one launch of this repo's kernels over
-    `reps` calls of fn, each launching one of them, after one warm-up call,
-    from torch.profiler's kernel records (a wrapper call's wall time also
-    holds its Python dispatch, which exceeds the kernel at narrow widths).
-    On the H100 a trace usually lacks one launch's record, now and then
-    holds none at all (up to several traces in a row), and once gave a
-    median of twice the kernel's time; a trace with no record, or whose
-    median exceeds 1.5 times the CUDA-event time of a call (which holds
-    the kernel), is taken again with twice the calls, up to `tries`
-    traces."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    event = cuda_ms(fn, reps)  # includes the warm-up call
-    for t in range(tries):
-        calls = reps << t
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        d = sorted(b - a for a, b, name in device_spans(prof)
-                   if kernel_row(name))
-        if d and d[len(d) // 2] * 1e-3 <= 1.5 * event:
-            return d[len(d) // 2] * 1e-3
-        log(f"device_ms: a trace held {len(d)} kernel records of {calls} "
-            f"launches, median {d[len(d) // 2] * 1e-3 if d else None} ms, "
-            f"event time {event} ms a call; tracing again")
-    raise AssertionError(f"torch.profiler gave no usable trace in {tries} "
-                         "traces")
-
-
-def device_spans(prof):
-    """(start_us, end_us, name) of every device activity a finished
-    torch.profiler trace holds, read from its raw kineto events: building
-    the profiler's FunctionEvent tree instead takes minutes for a trace of
-    a few million launches."""
-    from torch.autograd import DeviceType
-
-    return [(e.start_ns() * 1e-3, e.end_ns() * 1e-3, e.name())
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA]
-
-
-class Bound:
-    """Least time for a kernel's work: max(bytes / HBM rate, 32-bit
-    multiply-adds / integer peak)."""
-
-    def __init__(self, sms: int, clock_mhz: float):
-        self.imad_per_s = sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6
-
-    def __call__(self, nbytes: float, fq_muls: float,
-                 nw: int = 8) -> tuple[float, str]:
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = fq_muls * imad_per_fq_mul(nw) / self.imad_per_s
-        if t_ops >= t_bytes:
-            return t_ops * 1e3, "operations"
-        return t_bytes * 1e3, "bytes"
+    return out, start.elapsed_time(stop)
 
 
 def compare(name, kern, plain) -> int:
@@ -453,7 +401,7 @@ def phase_kernels(dev, bound, rng, ladder, lane, n=32 * 16384,
     def measure(kind, RR, f, cols, kern, plain, err, reps=5):
         nbytes = (3 if kind == "add" else 2) * RR * cols * 4
         b_ms, b_by = bound(nbytes, FQ_MULS[kind] * f * cols)
-        return dict(shape=[RR, cols], ms=device_ms(kern, reps),
+        return dict(shape=[RR, cols], ms=device_ms(kern, reps, kernel_row),
                     call_ms=cuda_ms(kern, reps), plain_ms=cuda_ms(plain, 1),
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
 
@@ -555,7 +503,7 @@ def phase_kernels(dev, bound, rng, ladder, lane, n=32 * 16384,
             err = compare(f"horner_{gname} W={W} c={c}", g.horner(s, c),
                           g.plain_horner(s, c))
             cases.append(dict(W=W, c=c, ms=device_ms(lambda: g.horner(s, c),
-                                                     3),
+                                                     3, kernel_row),
                               max_abs_err=err))
         W, c = 32, 8
         s = hs[(W, c)]
@@ -599,7 +547,7 @@ def phase_kernels(dev, bound, rng, ladder, lane, n=32 * 16384,
             b_ms, b_by = bound(nbytes, (S // 2) * logS * L)
             ntt_runs.append(dict(
                 shape=[16, S, L], inverse=inverse, ms=device_ms(
-                    lambda: nt(x), 10), call_ms=cuda_ms(lambda: nt(x), 10),
+                    lambda: nt(x), 10, kernel_row), call_ms=cuda_ms(lambda: nt(x), 10),
                 plain_ms=cuda_ms(lambda: nt.plain(x), 1), bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=err, chain_depth=logS,
             ))
@@ -730,14 +678,19 @@ def phase_kernels_w12(dev, bound, rng, widths):
                 else:
                     kern, plain = (lambda: g.double(x),
                                    lambda: in_blocks(g.plain_double, x))
-                err = compare(f"{kind}_{gname} n={n}", kern(), plain())
-                if n != max(wd[kind]) or key in entries:
+                # the plain version runs once a width (at the widest, up to
+                # 2^23 columns, it takes seconds): that call is its time
+                widest = n == max(wd[kind]) and key not in entries
+                want, p_ms = event_ms(plain) if widest else (plain(), None)
+                err = compare(f"{kind}_{gname} n={n}", kern(), want)
+                del want
+                if not widest:
                     continue
                 nbytes = (3 if kind == "add" else 2) * RR * n * 4
                 b_ms, b_by = bound(nbytes, FQ_MULS[kind] * f * n, g.nw)
                 entries[key] = dict(
-                    shape=[RR, n], ms=device_ms(kern, 5),
-                    call_ms=cuda_ms(kern, 5), plain_ms=cuda_ms(plain, 1),
+                    shape=[RR, n], ms=device_ms(kern, 5, kernel_row),
+                    call_ms=cuda_ms(kern, 5), plain_ms=p_ms,
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err, kind=kind,
                     source=SOURCES["limb_group"], group=gname,
                 )
@@ -756,7 +709,7 @@ def phase_kernels_w12(dev, bound, rng, widths):
             err = compare(f"horner_{gname} W={W} c={c}", g.horner(hs, c),
                           g.plain_horner(hs, c))
             cases.append(dict(W=W, c=c, ms=device_ms(
-                lambda: g.horner(hs, c), 3), max_abs_err=err))
+                lambda: g.horner(hs, c), 3, kernel_row), max_abs_err=err))
             if (W, c) == wd["horner"] and f"limb_horner_{suffix}" not in \
                     entries:
                 muls = (W - 1) * (c * FQ_MULS["double"] + FQ_MULS["add"]) * f
@@ -2761,17 +2714,132 @@ def phase_http(dev, ctx, n_batch=4, n_router=4, profile_s=3.0, n_pairs=3):
     return launches
 
 
+# phase 13: the registry's quick sizes, their warm reps, and the share of
+# its roof above which a record's work model counts more than its inputs
+# need
+PERF_REPS = 3
+PERF_MAX_UTILIZATION = 1.05
+
+
+def phase_perf(dev, reps=PERF_REPS):
+    """Phase 13: the perf observatory on the card. The kernel counters
+    zeroed, then perf.run_suite(quick=True) in-process over every
+    registered case; fails on an errored record, a kernel that no case
+    launched (over the phase, and in the records' own `launches`), or a
+    device record without a work model or above PERF_MAX_UTILIZATION of
+    its roof. Then the document, written to a temporary directory, is
+    read by the CLI's `perf top`, `perf diff --markdown` (against itself:
+    every ratio 1.0) and `perf roofline --run`, and gated by benchgate:
+    --write-baseline, --check of the same document (exit 0), --check of a
+    copy with every median x3 (exit 1); each a subprocess, started
+    together where they do not depend on one another. Logs each record's
+    median, items/s, utilization and launches, the build's seconds and
+    the phase's. Returns the launches over the phase."""
+    from distributed_groth16_tpu_torch.ops import _cuda
+    from distributed_groth16_tpu_torch.telemetry import perf
+
+    t0 = time.perf_counter()
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+    run = perf.run_suite(quick=True, device=dev, reps=reps)
+    launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    suite_s = time.perf_counter() - t0
+    recs = run["kernels"]
+    errors = {k: r["error"] for k, r in recs.items() if "error" in r}
+    if errors:
+        raise AssertionError(f"perf: errored records {errors}")
+    idle = sorted(k for k, v in launches.items() if v == 0)
+    in_records = set().union(*(r["launches"] for r in recs.values()))
+    if idle or in_records != set(_cuda.KERNELS):
+        raise AssertionError(
+            f"perf: kernels never launched: over the phase {idle}, in the "
+            f"records {sorted(set(_cuda.KERNELS) - in_records)}")
+    for key, r in sorted(recs.items()):
+        att = r["roofline"]
+        if not r["host"] and (r["cost"] is None or att is None
+                              or att["utilization"] > PERF_MAX_UTILIZATION):
+            raise AssertionError(f"perf {key}: roofline {att} of cost "
+                                 f"{r['cost']} in {r['median_seconds']} s")
+        log(f"perf {key}: " + json.dumps(dict(
+            median_s=r["median_seconds"], items_per_s=r["items_per_sec"],
+            utilization=att and att["utilization"],
+            bound=att and att["bound"], launches=r["launches"],
+            first_call_s=r["compile_seconds"],
+            peak_bytes=(r["memory"] or {}).get("peak_bytes"))))
+    here = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "distributed_groth16_tpu_torch.api.cli",
+           "perf"]
+    gate = [sys.executable, "-m",
+            "distributed_groth16_tpu_torch.telemetry.benchgate"]
+
+    def start(argv):
+        return subprocess.Popen(argv, cwd=here, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def finish(name, proc, rc=0):
+        so, se = proc.communicate(timeout=120)
+        if proc.returncode != rc:
+            raise AssertionError(f"perf {name}: exit {proc.returncode}, "
+                                 f"expected {rc}: {so[-1500:]} {se[-1500:]}")
+        return so
+
+    with tempfile.TemporaryDirectory() as d:
+        doc, slow, base = (os.path.join(d, f) for f in
+                           ("perf.json", "slow.json", "baseline.json"))
+        with open(doc, "w") as f:
+            json.dump(run, f)
+        slower = json.loads(json.dumps(run))
+        for r in slower["kernels"].values():
+            r["median_seconds"] *= 3
+        with open(slow, "w") as f:
+            json.dump(slower, f)
+        t1 = time.perf_counter()
+        wave = {"diff": start(cli + ["diff", doc, doc, "--markdown"]),
+                "roofline": start(cli + ["roofline", "--run", doc]),
+                "write": start(gate + ["--check", doc, "--baseline", base,
+                                       "--write-baseline"])}
+        diff = finish("diff", wave["diff"])
+        table = finish("roofline", wave["roofline"])
+        finish("write-baseline", wave["write"])
+        wave = {"top": start(cli + ["top", "--run", doc, "--baseline", base,
+                                    "-n", "3"]),
+                "same": start(gate + ["--check", doc, "--baseline", base]),
+                "slow": start(gate + ["--check", slow, "--baseline", base])}
+        top = json.loads(finish("top", wave["top"]))
+        same = finish("check", wave["same"])
+        regressed = finish("check x3", wave["slow"], rc=1)
+        cli_s = time.perf_counter() - t1
+    rows = [ln for ln in diff.splitlines() if ln.startswith("| `")]
+    if len(rows) != len(recs) or any(not ln.endswith("| 1.0 |")
+                                     for ln in rows):
+        raise AssertionError(f"perf diff of a run against itself: {diff}")
+    missing = [k for k, r in recs.items()
+               if not r["host"] and f"\n{k} " not in table]
+    if missing or "device:NVIDIA H100" not in table:
+        raise AssertionError(f"perf roofline lacks {missing}: {table}")
+    if len(top["top"]) != 3 or any(e["vsBaseline"] != 1.0
+                                   for e in top["top"]):
+        raise AssertionError(f"perf top: {top}")
+    if "benchgate: PASS" not in same or "benchgate: FAIL" not in regressed:
+        raise AssertionError(f"benchgate: {same} {regressed}")
+    log("perf roofline:\n" + table)
+    log("perf: " + json.dumps(dict(
+        records=len(recs), build_seconds=run["build_seconds"],
+        peaks=run["peaks"], suite_s=suite_s, cli_and_gate_s=cli_s,
+        top=[e["key"] for e in top["top"]],
+        regressions=regressed.count("REGRESSION"),
+        phase_s=time.perf_counter() - t0)))
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    try:
-        from distributed_groth16_tpu_torch.ops import _cuda
-    except ImportError as exc:
-        print(f"chip_smoke: port package not found: {exc}", file=sys.stderr)
-        return 1
+    from distributed_groth16_tpu_torch.ops import _cuda
+
     import numpy as np
 
     dev = torch.device("cuda", 0)
@@ -2781,7 +2849,7 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"device: {name} | {smi} | {sms} SMs | max SM clock {clock} MHz | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
-    bound = Bound(sms, clock)
+    bound = card_bound(sms, clock)
 
     t0 = time.perf_counter()
     _cuda.build()
@@ -2829,6 +2897,8 @@ def main() -> int:
     lap("phase 11")
     launches_http = phase_http(dev, ctx)
     lap("phase 12")
+    launches_perf = phase_perf(dev)
+    lap("phase 13")
 
     # every kernel launches on at least one path: kernel 2 (double) only on
     # the MPC and BLS paths' ladders, kernel 4 (ntt_small) only on the main
@@ -2856,6 +2926,7 @@ def main() -> int:
             launches_batch=launches_batch[key],
             launches_service_prove=launches_job[key],
             launches_http=launches_http[key],
+            launches_perf=launches_perf[key],
             launches_by_bls_path={p: r["launches"].get(key, 0)
                                   for p, r in bls.items()},
             max_abs_err=err, match=err == 0, ms=e["ms"], kernel_ms=e["ms"],
@@ -2889,7 +2960,7 @@ def main() -> int:
                 + row["launches_mpc64"] + row["launches_star"]
                 + row["launches_zkey"] + row["launches_batch"]
                 + row["launches_service_prove"]
-                + row["launches_http"]) == 0:
+                + row["launches_http"] + row["launches_perf"]) == 0:
             raise AssertionError(f"no path launched {key}")
         rows.append(row)
     print(json.dumps({"kernels": rows}))

@@ -171,7 +171,7 @@ clock = float(cs.nvidia_smi("clocks.max.sm").split()[0])
 sms = torch.cuda.get_device_properties(0).multi_processor_count
 ladder = cs.ladder_shapes(cs.sha256_abc()[0], 1 << 15)
 same = same_shapes(dev, ladder)
-entries = cs.phase_kernels(dev, cs.Bound(sms, clock),
+entries = cs.phase_kernels(dev, cs.card_bound(sms, clock),
                            np.random.default_rng(42), ladder)
 warm, mpc = [], None
 if sys.argv[1] == "main":

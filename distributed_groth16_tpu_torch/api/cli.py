@@ -1,7 +1,8 @@
 """CLI client — the zk-cli role (zk-cli/src/main.rs:30-208); the
-counterpart of the JAX package's api/cli.py, without its `perf` group
-(the per-kernel perf observatory is not ported yet). It speaks HTTP
-to a port server or router and needs no card itself.
+counterpart of the JAX package's api/cli.py. It speaks HTTP to a port
+server or router and needs no card itself, but for `perf run` and
+`perf roofline` without --run, which run the per-kernel perf registry
+(telemetry/perf.py) on the card unless --device names another.
 
 Subcommands `save / prove / mpc-prove / verify` posting multipart/JSON to
 the proving service (default http://localhost:8000). The reference's
@@ -37,6 +38,14 @@ Usage:
   python -m distributed_groth16_tpu_torch.api.cli fleet status
   python -m distributed_groth16_tpu_torch.api.cli fleet top [--interval 2] [--once]
   python -m distributed_groth16_tpu_torch.api.cli fleet drain REPLICA
+  python -m distributed_groth16_tpu_torch.api.cli perf run [--quick] \
+      [--select msm_g1 ...] [--device cpu] [--out perf.json]
+  python -m distributed_groth16_tpu_torch.api.cli perf top --run perf.json \
+      [-n 10]
+  python -m distributed_groth16_tpu_torch.api.cli perf diff before.json \
+      after.json [--markdown]
+  python -m distributed_groth16_tpu_torch.api.cli perf roofline \
+      [--run perf.json | --device cpu]
   python -m distributed_groth16_tpu_torch.api.cli profile capture [--seconds 3] \
       [--out prof.tar.gz]
   python -m distributed_groth16_tpu_torch.api.cli profile status
@@ -636,6 +645,190 @@ def cmd_fleet_drain(args) -> dict:
     )
 
 
+def cmd_perf_run(args) -> dict:
+    """Run the per-kernel bench registry locally (no server; on the card
+    unless --device names another) and print a compact summary; --out
+    writes the full dg16-perf/1 document — gate it later with
+    `python -m distributed_groth16_tpu_torch.telemetry.benchgate --check`."""
+    from ..telemetry import perf
+
+    try:
+        run = perf.run_suite(
+            quick=args.quick, select=args.select, reps=args.reps,
+            device=args.device,
+        )
+    except KeyError as e:
+        raise SystemExit(f"perf: {e.args[0]}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(run, f, indent=2, sort_keys=True)
+    summary = {}
+    for key, r in sorted(run["kernels"].items()):
+        if "error" in r:
+            summary[key] = {"error": r["error"]}
+        else:
+            summary[key] = {
+                "medianSeconds": round(r["median_seconds"], 6),
+                "itemsPerSec": round(r["items_per_sec"], 1),
+                "compileSeconds": (
+                    round(r["compile_seconds"], 3)
+                    if r.get("compile_seconds") is not None
+                    else None
+                ),
+            }
+    return {
+        "platform": run["platform"],
+        "quick": run["quick"],
+        "out": args.out,
+        "kernels": summary,
+    }
+
+
+def _load_perf(path: str) -> dict:
+    from ..telemetry.benchgate import PerfBaselineError, load_run
+
+    try:
+        return load_run(path)
+    except PerfBaselineError as e:
+        raise SystemExit(f"perf: {e}")
+
+
+def cmd_perf_top(args) -> dict:
+    """Slowest kernels of a recorded run, with the vs-baseline ratio —
+    the 'where is the time going NOW' view."""
+    from ..telemetry.benchgate import (
+        PerfBaselineError,
+        default_baseline_path,
+        load_baseline,
+    )
+
+    run = _load_perf(args.run)
+    # anchored to the package, not the CWD — `perf top` run from
+    # anywhere still finds the port's baseline
+    base_path = args.baseline or default_baseline_path()
+    try:
+        baseline = load_baseline(base_path)
+    except PerfBaselineError as e:
+        raise SystemExit(f"perf: {e}")
+    base_kernels = (baseline or {}).get("kernels", {})
+    entries = []
+    for key, r in run["kernels"].items():
+        if "error" in r:
+            continue
+        base = base_kernels.get(key)
+        entries.append(
+            {
+                "key": key,
+                "medianSeconds": round(r["median_seconds"], 6),
+                "itemsPerSec": round(r.get("items_per_sec", 0), 1),
+                "unit": r.get("unit"),
+                "vsBaseline": (
+                    round(r["median_seconds"] / base["median_seconds"], 3)
+                    if base and base["median_seconds"] > 0
+                    else None
+                ),
+            }
+        )
+    entries.sort(key=lambda e: e["medianSeconds"], reverse=True)
+    return {
+        "run": args.run,
+        # null when the baseline file is absent — every vsBaseline is
+        # null then, and the caller can see why
+        "baseline": base_path if baseline is not None else None,
+        "top": entries[: args.n],
+    }
+
+
+def cmd_perf_diff(args) -> dict:
+    """Per-kernel ratio between two recorded runs (B/A: < 1 means B is
+    faster) — the before/after view a perf PR ships with. `--markdown`
+    prints a GitHub-flavored table instead of JSON (for a CI step
+    summary)."""
+    run_a, run_b = _load_perf(args.run_a), _load_perf(args.run_b)
+    ka, kb = run_a["kernels"], run_b["kernels"]
+    rows = {}
+    for key in sorted(set(ka) & set(kb)):
+        a, b = ka[key], kb[key]
+        if "error" in a or "error" in b:
+            rows[key] = {"error": a.get("error") or b.get("error")}
+            continue
+        rows[key] = {
+            "aSeconds": round(a["median_seconds"], 6),
+            "bSeconds": round(b["median_seconds"], 6),
+            "ratio": (
+                round(b["median_seconds"] / a["median_seconds"], 3)
+                if a["median_seconds"] > 0
+                else None
+            ),
+        }
+    out = {
+        "a": args.run_a,
+        "b": args.run_b,
+        "kernels": rows,
+        "onlyInA": sorted(set(ka) - set(kb)),
+        "onlyInB": sorted(set(kb) - set(ka)),
+    }
+    if getattr(args, "markdown", False):
+        print(format_perf_diff_markdown(out))
+        raise SystemExit(0)
+    return out
+
+
+def format_perf_diff_markdown(diff: dict) -> str:
+    """The `perf diff --markdown` table — pure string building so the CI
+    step-summary path is unit-testable without a runner."""
+    lines = [
+        f"### perf diff — `{diff['a']}` vs `{diff['b']}`",
+        "",
+        "| kernel | A (s) | B (s) | B/A |",
+        "| --- | --- | --- | --- |",
+    ]
+    for key in sorted(diff["kernels"]):
+        row = diff["kernels"][key]
+        if "error" in row:
+            lines.append(f"| `{key}` | — | — | errored: {row['error']} |")
+            continue
+        ratio = row["ratio"]
+        flag = ""
+        if ratio is not None:
+            flag = " 🔺" if ratio > 1.25 else (" ✅" if ratio < 0.8 else "")
+        lines.append(
+            f"| `{key}` | {row['aSeconds']:.6g} | {row['bSeconds']:.6g} "
+            f"| {ratio if ratio is not None else '—'}{flag} |"
+        )
+    for label, keys in (("only in A", diff["onlyInA"]),
+                        ("only in B", diff["onlyInB"])):
+        if keys:
+            lines.append("")
+            lines.append(f"_{label}: {', '.join(keys)}_")
+    return "\n".join(lines)
+
+
+def cmd_perf_roofline(args) -> dict:
+    """Roofline attribution table over a recorded dg16-perf/1 run (or a
+    fresh quick run on --device, the card by default, when --run is
+    absent): achieved multiply-adds/s and B/s, arithmetic intensity,
+    fraction of the binding roof, and whether each kernel is compute- or
+    memory-bound — against DG16_PEAK_FLOPS / DG16_PEAK_BW or the
+    device-kind peak table of this machine (telemetry/roofline.py)."""
+    from ..telemetry import roofline
+
+    if args.run:
+        run = _load_perf(args.run)
+    else:
+        from ..telemetry import perf
+
+        try:
+            run = perf.run_suite(
+                quick=True, select=args.select, reps=args.reps,
+                device=args.device,
+            )
+        except KeyError as e:
+            raise SystemExit(f"perf: {e.args[0]}")
+    print(roofline.format_table(run))
+    raise SystemExit(0)
+
+
 def cmd_export_eth(args) -> dict:
     """Local conversion — no server round-trip needed."""
     from ..frontend.ark_serde import proof_from_bytes
@@ -781,6 +974,62 @@ def main(argv=None) -> None:
     )
     sp.add_argument("replica", help="replica id (or config URL)")
     sp.set_defaults(fn=cmd_fleet_drain)
+
+    perf_p = sub.add_parser(
+        "perf",
+        help="per-kernel perf observatory: run the bench registry, rank "
+             "slowest kernels, diff two runs, roofline",
+    )
+    perf_sub = perf_p.add_subparsers(dest="perf_cmd", required=True)
+
+    sp = perf_sub.add_parser("run", help="run the kernel registry locally")
+    sp.add_argument("--quick", action="store_true",
+                    help="smoke subset of sizes")
+    sp.add_argument("--select", nargs="+", metavar="KERNEL", default=None,
+                    help="only these registered kernels")
+    sp.add_argument("--reps", type=int, default=None,
+                    help="warm reps per case (default DG16_PERF_REPS)")
+    sp.add_argument("--out", default=None,
+                    help="write the full dg16-perf/1 run document here")
+    sp.add_argument("--device", default=None,
+                    help="device to run on (default: the card, cuda:0; "
+                         "cpu runs the plain versions)")
+    sp.set_defaults(fn=cmd_perf_run)
+
+    sp = perf_sub.add_parser(
+        "top", help="slowest kernels of a recorded run vs baseline"
+    )
+    sp.add_argument("--run", required=True, help="dg16-perf/1 run JSON")
+    sp.add_argument("--baseline", default=None,
+                    help="baseline file (default distributed_groth16_tpu_"
+                         "torch/tools/perf-baseline.json)")
+    sp.add_argument("-n", type=int, default=10, help="rows to show")
+    sp.set_defaults(fn=cmd_perf_top)
+
+    sp = perf_sub.add_parser("diff", help="per-kernel ratio of two runs")
+    sp.add_argument("run_a", help="baseline-side run JSON (A)")
+    sp.add_argument("run_b", help="candidate-side run JSON (B)")
+    sp.add_argument("--markdown", action="store_true",
+                    help="print a GitHub-flavored table (for CI step "
+                         "summaries) instead of JSON")
+    sp.set_defaults(fn=cmd_perf_diff)
+
+    sp = perf_sub.add_parser(
+        "roofline",
+        help="roofline attribution: utilization + compute/memory-bound "
+             "classification per device kernel",
+    )
+    sp.add_argument("--run", default=None,
+                    help="dg16-perf/1 run JSON to attribute (default: "
+                         "run the quick suite now)")
+    sp.add_argument("--select", nargs="+", metavar="KERNEL", default=None,
+                    help="only these registered kernels (no --run only)")
+    sp.add_argument("--reps", type=int, default=None,
+                    help="warm reps per case (no --run only)")
+    sp.add_argument("--device", default=None,
+                    help="device of the quick run (no --run only; "
+                         "default: the card, cuda:0)")
+    sp.set_defaults(fn=cmd_perf_roofline)
 
     pp = sub.add_parser(
         "profile",

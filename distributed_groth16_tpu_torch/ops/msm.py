@@ -12,9 +12,10 @@ small size):
     sequential sum;
   * between the two the JAX package runs its row-major Pippenger
     (_msm_jit); the port takes the tree there too;
-  * an explicit window_bits or chunk pins the row-major Pippenger
-    (_msm_pippenger, plain PyTorch as the JAX package's is plain XLA),
-    chunk running it on consecutive chunks and adding the parts.
+  * an explicit window_bits or chunk pins the JAX package's Pippenger
+    (_msm_pippenger; its group ops on the limb group, kernels 1 and 2 on
+    a CUDA tensor), chunk running it on consecutive chunks and adding
+    the parts.
 
 Above TREE_MSM_MAX_N points the tree route runs msm_tree over consecutive
 chunks of at most that many points and adds the partial results on the
@@ -96,27 +97,42 @@ def _digits_for_window(scalars, w: int, c: int):
 
 
 def _msm_pippenger(curve: CurvePoints, points, scalars, c: int):
-    """Row-major Pippenger, the JAX package's _msm_jit: per c-bit window
+    """The JAX package's row-major Pippenger (_msm_jit): per c-bit window
     the points are sorted by digit and prefix-summed; with T the sum of
     all points and C_j the prefix through bucket j,
     sum_b b S_b = sum_{j=0..B-2} (T - C_j); the windows combine by
-    Horner (c doublings and one add a window)."""
+    Horner (c doublings and one add a window). Its group ops run on the
+    curve's limb group, one point a column (kernels 1 and 2 on a card:
+    a group op is one launch where the row-major ops take ~100 small
+    ones; their plain versions on the CPU), in the JAX package's order,
+    so the result is the same point, canonical row-major."""
+    g = _limb_group_for(curve)
     dev = points.device
     B = 1 << c
+    pts = g.from_rowmajor(points)  # (ROWS, n)
     buckets = torch.arange(B - 1, device=dev)
-    inf = curve.infinity((B - 1,), dev)
-    acc = curve.infinity((), dev)
+    inf = g.infinity(B - 1, dev)
+    acc = g.infinity(1, dev)
+
+    def col_add(a, b):  # group add on (k, ROWS) views, as inclusive_scan
+        return g.add(a.t(), b.t()).t()
+
     for w in range(_SCALAR_BITS // c - 1, -1, -1):
         for _ in range(c):
-            acc = curve.double(acc)
+            acc = g.double(acc)
         digits = _digits_for_window(scalars, w, c)
         order = torch.argsort(digits, stable=True)
-        prefix = inclusive_scan(curve.add, points[order])
+        prefix = inclusive_scan(col_add, pts[:, order].t()).t()
         ends = torch.searchsorted(digits[order], buckets, right=True)
-        cum = curve.select(ends > 0, prefix[(ends - 1).clamp(min=0)], inf)
-        terms = curve.add(prefix[-1].expand(cum.shape), curve.neg(cum))
-        acc = curve.add(acc, curve.sum(terms, axis=0))
-    return acc
+        cum = torch.where(ends > 0, prefix[:, (ends - 1).clamp(min=0)], inf)
+        terms = g.add(prefix[:, -1:].expand(cum.shape), g.neg(cum))
+        # curve.sum's pairwise tree over the B - 1 columns
+        while terms.shape[1] > 1:
+            half = terms.shape[1] // 2
+            s = g.add(terms[:, :half], terms[:, half : 2 * half])
+            terms = torch.cat([s, terms[:, 2 * half :]], dim=1)
+        acc = g.add(acc, terms)
+    return g.to_rowmajor(acc)[0]
 
 
 def msm(curve: CurvePoints, points, scalars, window_bits: int | None = None,

@@ -15,12 +15,13 @@ counterpart of the JAX package's utils/config.py.
   * read_address_file: the address-file format of network-address/4|8,
     one `host:port` per rank.
 
-The JAX package's knobs of the perf observatory, the roofline, the JAX
-compilation cache and bench.py are not declared: nothing in the port
-reads them. DG16_PROF_DIR names torch.profiler where the JAX text names
-the XLA profiler. The JAX package's Opt and parse_opt are left out: no
-entry point of the port parses them (the examples take their own flags,
-examples/_star.py).
+The JAX package's knobs of the JAX compilation cache and bench.py are
+not declared: nothing in the port reads them. DG16_PROF_DIR names
+torch.profiler where the JAX text names the XLA profiler, and
+DG16_PEAK_FLOPS counts 32-bit multiply-adds/s, the unit of the port's
+roofline (telemetry/roofline.py). The JAX package's Opt and parse_opt
+are left out: no entry point of the port parses them (the examples take
+their own flags, examples/_star.py).
 """
 
 from __future__ import annotations
@@ -71,10 +72,16 @@ KNOBS: dict[str, str] = {
     "DG16_LOG_JSON": "console handler emits JSON lines",
     "DG16_LOG_STORM_BURST": "per-template records before suppression",
     "DG16_LOG_STORM_RATE": "suppressed-template refill, records/sec, <=0 off",
+    # performance observatory (telemetry/perf.py, telemetry/benchgate.py)
+    "DG16_PERF_REPS": "benchgate warm reps per kernel case",
+    "DG16_PERF_REL_THRESHOLD": "benchgate relative slowdown gate",
+    "DG16_PERF_ABS_FLOOR_S": "benchgate absolute-seconds noise floor",
     # device observatory (docs/OBSERVABILITY.md "Device observatory")
     "DG16_PROF_DIR": "on-demand torch.profiler artifact directory",
     "DG16_PROF_MAX_S": "cap on one POST /profile capture duration",
     "DG16_DEVMEM_SAMPLE_S": "device-memory sampler period, <=0 off",
+    "DG16_PEAK_FLOPS": "roofline peak 32-bit multiply-adds/s override for this backend",
+    "DG16_PEAK_BW": "roofline peak HBM bytes/sec override for this backend",
     # fleet plane (docs/FLEET.md)
     "DG16_FLEET_REPLICAS": "router replica set: url[=journal-dir] CSV",
     "DG16_FLEET_POLL_S": "router discovery poll period seconds",
