@@ -56,7 +56,7 @@ result line):
      parallel/pointntt.py (lane ladders and butterflies on kernels 1 and
      2), QAP and witness shares, one 64-party round over LocalSimNet whose
      every king unpack runs unpackexp_ntt; the proof equals phase 4's
-     prove_single proof byte for byte, a round at r, s != 0 verifies. The
+     prove_single proof byte for byte (r, s != 0 only at n = 8). The
      pack and the round run under a device-only trace, counters zeroed
      before and read after; each must launch kernels 1 and 2 on G1 and
      G2. Then one G1 query's pack and one king unpack by the dense ladder
@@ -141,7 +141,20 @@ result line):
      model and stays at or under 105% of its roofline roof; the CLI's
      `perf top`, `perf diff` and `perf roofline` read the run document,
      benchgate passes it against its own baseline and fails a copy with
-     every median x3. Logs each record and the phase's seconds.
+     every median x3. Logs each record and the phase's seconds;
+ 14. the reference's workloads (BASELINE configs 2-4) through the run(...)
+     of the port's examples (distributed_groth16_tpu_torch/examples/), the
+     parties of each simulated in one process: (a) config 2, dmsm_bench's
+     BN254 G1 d_msm at 2^20 points with l = 1 (n = 4), equal with the
+     local msm to (sum s_i)*G from the host; (b) config 3, dfft_test's
+     d_fft at 2^22, l = 2, equal to the card's limb NTT and to refmath at
+     two points; (c) config 4, million's chain proved by the 8-party round
+     at 2^WORKLOAD_MILLION_LOG2 constraints (cut from 2^20 for the time
+     limit; 2^20 runs as its own call), verifying and equal to
+     prove_single's; (d) local_groth_bench at 2^15 and profile_msm at
+     2^20. Each part under a device-only trace: its wall ms, device-busy
+     ms, peak bytes, host bigint seconds, launches and device ms per
+     kernel. Counters zeroed before the phase, read after.
 
 Output: phase lines, then a {"kernels": [...]} line (launches on the row's
 own path: phase 4 for the 8-word kernels, phase 7 for the 12-word ones;
@@ -150,7 +163,8 @@ MPC paths; launches_star, summed over the ranks of phase 9's SHA-256
 star; launches_zkey over phase 10; launches_batch over phase 11's batch
 of 8 (kernels 1-3), launches_service_prove over its per-job prove job
 (kernels 1, 3 and 4), launches_http over phase 12 (kernels 1-4),
-launches_perf over phase 13 (every kernel); ms,
+launches_perf over phase 13 (every kernel), launches_workloads over
+phase 14 (the 8-word kernels); ms,
 the device time of one launch at the row's shape;
 ms_per_proof, ms_per_mpc_proof, ms_per_bls_path, ms_per_mpc64_proof and
 ms_per_batch, the summed device time in one warm proof, one MPC proof
@@ -164,6 +178,7 @@ last {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import functools
+import importlib
 import json
 import os
 import re
@@ -629,10 +644,17 @@ def small_log_points(g, C, host, gen, n, dev, seed, windows=4):
     return out, logs
 
 
+# phase 3's 12-word plain versions check (and time) at most this many
+# columns of a launch: at the path widths (up to 2^24.3 columns) they took
+# about 27 s more of the script's time limit
+W12_PLAIN_COLUMNS = 1 << 20
+
+
 def phase_kernels_w12(dev, bound, rng, widths):
     """Phase 3, 12 words: kernels 1-3 at <12, 1> and <12, 2> against their
     plain versions on the card (limb for limb) at ragged widths and at the
-    widths phase 7's paths give them (`widths`: group -> kind -> columns;
+    widths phase 7's paths give them, there on the first W12_PLAIN_COLUMNS
+    columns of each launch (`widths`: group -> kind -> columns;
     kernel 1 also on msm_tree's strided pair halves and on a broadcast
     operand, Horner at W in {2, 32, 34, 64, 68}), and timed at the widest
     path width of each (device ms per launch)."""
@@ -667,22 +689,26 @@ def phase_kernels_w12(dev, bound, rng, widths):
         xs = red[:, : 2 * 4095 : 2]
         compare(f"double_{gname} column stride 2", g.double(xs),
                 g.plain_double(xs))
-        # every path width; the row is timed at the widest
+        # every path width; the row is timed at the widest. The kernel
+        # runs at the whole width, its first W12_PLAIN_COLUMNS columns held
+        # against the plain version (which runs once a width: that call is
+        # its time)
         for kind in ("add", "double"):
             key = f"limb_{kind}_{suffix}"
             for n in sorted(wd[kind]):
                 x, y = cols(n, n + 1)
+                k = min(n, W12_PLAIN_COLUMNS)
                 if kind == "add":
                     kern, plain = (lambda: g.add(x, y),
-                                   lambda: in_blocks(g.plain_add, x, y))
+                                   lambda: in_blocks(g.plain_add, x[:, :k],
+                                                     y[:, :k]))
                 else:
                     kern, plain = (lambda: g.double(x),
-                                   lambda: in_blocks(g.plain_double, x))
-                # the plain version runs once a width (at the widest, up to
-                # 2^23 columns, it takes seconds): that call is its time
+                                   lambda: in_blocks(g.plain_double,
+                                                     x[:, :k]))
                 widest = n == max(wd[kind]) and key not in entries
                 want, p_ms = event_ms(plain) if widest else (plain(), None)
-                err = compare(f"{kind}_{gname} n={n}", kern(), want)
+                err = compare(f"{kind}_{gname} n={n}", kern()[:, :k], want)
                 del want
                 if not widest:
                     continue
@@ -690,7 +716,7 @@ def phase_kernels_w12(dev, bound, rng, widths):
                 b_ms, b_by = bound(nbytes, FQ_MULS[kind] * f * n, g.nw)
                 entries[key] = dict(
                     shape=[RR, n], ms=device_ms(kern, 5, kernel_row),
-                    call_ms=cuda_ms(kern, 5), plain_ms=p_ms,
+                    call_ms=cuda_ms(kern, 5), plain_ms=p_ms, plain_columns=k,
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err, kind=kind,
                     source=SOURCES["limb_group"], group=gname,
                 )
@@ -1381,8 +1407,9 @@ def phase_mpc64(dev, ctx, l=16, dpp_log_m=15):
     from its .npz (no dealer scalars) and packed by the point route, QAP
     and witness shares, one r = s = 0 round over LocalSimNet whose every
     king unpack runs unpackexp_ntt, reassemble_proof -> verify; the proof
-    equals phase 4's prove_single proof byte for byte, and a round at
-    r, s != 0 verifies. The pack and the r = s = 0 round each run under a
+    equals phase 4's prove_single proof byte for byte (the round at
+    r, s != 0 runs at n = 8 in phase 6; at n = 64 it cost ~28 s of the
+    script's time limit). The pack and the r = s = 0 round each run under a
     device-only trace, counters zeroed before and read after; each must
     launch kernels 1 and 2 on G1 and G2. Then one G1 query's pack and one
     king unpack by both routes (equal as affine points, both timed), and
@@ -1397,7 +1424,7 @@ def phase_mpc64(dev, ctx, l=16, dpp_log_m=15):
     )
     from distributed_groth16_tpu_torch.models.groth16 import (
         ProvingKey, distributed_prove_party, pack_from_witness,
-        pack_proving_key, public_prove_consts, reassemble_proof, verify,
+        pack_proving_key, reassemble_proof, verify,
     )
     from distributed_groth16_tpu_torch.ops import _cuda
     from distributed_groth16_tpu_torch.ops.constants import R
@@ -1502,18 +1529,6 @@ def phase_mpc64(dev, ctx, l=16, dpp_log_m=15):
     log(f"mpc64: proof verifies and equals prove_single's; {n_unpack} king "
         "unpacks through unpackexp_ntt")
 
-    rng = np.random.default_rng(2026)
-    r = int.from_bytes(rng.bytes(40), "little") % R
-    s = int.from_bytes(rng.bytes(40), "little") % R
-    t0 = time.perf_counter()
-    res, _ = round_(pub=public_prove_consts(pk), r=r, s=s)
-    sync(dev)
-    t_zk = (time.perf_counter() - t0) * 1e3
-    zk = reassemble_proof(res[0], pk)
-    if not verify(pk.vk, zk, pubs) or proof_bytes(zk) == proof_bytes(proof):
-        raise AssertionError("n = 64 MPC proof at r, s != 0 does not verify")
-    log(f"mpc64 r, s != 0: verifies, round {t_zk:.1f} ms")
-
     # one G1 query's pack (h_query, the widest) and one king unpack of 64
     # shares by both routes, each timed warm (its second call)
     C = g1()
@@ -1543,6 +1558,7 @@ def phase_mpc64(dev, ctx, l=16, dpp_log_m=15):
 
     # d_pp: num = den = 1..m (dpp_test.rs:20-26), then random num, den
     F = fr()
+    rng = np.random.default_rng(2026)
     for lp, log_m, rand in ((l, dpp_log_m, False), (2, 10, True)):
         m = 1 << log_m
         qp = pss(lp)
@@ -2832,6 +2848,128 @@ def phase_perf(dev, reps=PERF_REPS):
     return launches
 
 
+# phase 14: the reference's workloads (BASELINE configs 2-4) through the
+# port's examples. Configs 2 and 3 run at their full sizes; config 4 at
+# 2^WORKLOAD_MILLION_LOG2 constraints (2^20 at full size) so the script
+# stays inside its time limit, its full size running as its own call
+WORKLOAD_MILLION_LOG2 = 18
+WORKLOAD_DMSM_LOG2 = 20
+WORKLOAD_DFFT_LOG2 = 22
+WORKLOAD_LGB_LOG2 = 15
+WORKLOAD_PROFILE_MSM_LOG2 = 20
+
+# the kernels each part must launch (8 words: no BLS12 curve on the path)
+WORKLOAD_KERNELS = {
+    "config2_dmsm": ("limb_add_g1", "limb_double_g1", "limb_horner_g1"),
+    "config3_dfft": ("ntt_small",),
+    "config4_million": ("limb_add_g1", "limb_add_g2", "limb_double_g1",
+                        "limb_double_g2", "limb_horner_g1",
+                        "limb_horner_g2", "ntt_small"),
+    "local_groth_bench": ("limb_add_g1", "limb_add_g2", "limb_horner_g1",
+                          "limb_horner_g2", "ntt_small"),
+    "profile_msm": ("limb_add_g1", "limb_horner_g1"),
+}
+
+
+def phase_workloads(dev, million_log2=WORKLOAD_MILLION_LOG2,
+                    dmsm_log2=WORKLOAD_DMSM_LOG2,
+                    dfft_log2=WORKLOAD_DFFT_LOG2, lgb_log2=WORKLOAD_LGB_LOG2,
+                    profile_log2=WORKLOAD_PROFILE_MSM_LOG2):
+    """Phase 14: the reference's workloads through the run(...) of the
+    port's examples (distributed_groth16_tpu_torch/examples/), the n
+    parties of each simulated in one process:
+    (a) config 2, dmsm_bench: a BN254 G1 d_msm at 2^dmsm_log2 points with
+        l = 1 (1 king + 3 clients), its bases one generator packed in the
+        exponent; the d_msm result and the local msm both equal
+        (sum s_i mod r)*G from the host;
+    (b) config 3, dfft_test: a d_fft at m = 2^dfft_log2, l = 2, n = 8,
+        equal as canonical limbs to the card's limb NTT (kernel 4) of the
+        same input and to refmath at two points w^k;
+    (c) config 4, million: the chain of 2^million_log2 constraints proved
+        by the 8-party MPC round (scalar-route pack, strip=True); the
+        proof verifies and equals prove_single's on the same key;
+    (d) local_groth_bench at m = 2^lgb_log2 (6 FFTs and 5 MSMs, G2 too)
+        and profile_msm at 2^profile_log2 (the tree MSM's stages).
+    Each part runs under a device-only trace, the counters zeroed before
+    the phase: logs its wall ms, device-busy ms, peak device bytes, host
+    bigint seconds (draws, encodes, refmath checks; for (c) also the
+    circuit's build, setup's QAP-at-tau and scalar encodes, and the
+    verify), launches and device ms per kernel, and its example's dict.
+    Fails on an example's failed check or a part that launched none of the
+    kernels it must. Returns the launches over the phase."""
+    import torch
+
+    from distributed_groth16_tpu_torch.examples import (
+        dfft_test, dmsm_bench, local_groth_bench, million, profile_msm,
+    )
+    from distributed_groth16_tpu_torch.ops import _cuda
+
+    # the module, not the function the package re-exports under its name
+    setup_mod = importlib.import_module(
+        "distributed_groth16_tpu_torch.models.groth16.setup")
+    t_phase = time.perf_counter()
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+    parts = {}
+
+    def part(name, fn):
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        t0 = time.perf_counter()
+        with kernel_trace(host_ops=False) as tr:
+            res = fn()
+            sync(dev)
+        wall = (time.perf_counter() - t0 - tr["trace_s"]) * 1e3
+        launches = {k: v.launches - before[k]
+                    for k, v in _cuda.KERNELS.items()}
+        rec = dict(wall_ms=wall, busy_ms=tr["busy_ms"],
+                   peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   host_s=res.get("host_s"), trace_s=tr["trace_s"],
+                   launches={k: v for k, v in launches.items() if v},
+                   device_ms=tr["per_kernel"], result=res)
+        log(f"workload {name}: " + json.dumps(rec))
+        idle = [k for k in WORKLOAD_KERNELS[name] if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"workload {name} never launched {idle}")
+        if not res["ok"]:
+            raise AssertionError(f"workload {name} failed its check: {res}")
+        parts[name] = rec
+        return res
+
+    part("config2_dmsm", lambda: dmsm_bench.run(
+        dmsm_log2, dmsm_log2, l=1, device=dev))
+    part("config3_dfft", lambda: dfft_test.run(
+        1 << dfft_log2, 2, check="ntt", device=dev))
+
+    def chain():
+        probed = {"qap_at_tau": (setup_mod, "_qap_polys_at_tau"),
+                  "setup_encode": (setup_mod, "encode_scalars_std")}
+        with probes(dev, probed) as ms:
+            res = million.run(million_log2, 2, match_single=True, device=dev)
+        ph = res["phases_ms"]
+        res["host_s"] = (ph["build circuit"] + ms["qap_at_tau"]
+                         + ms["setup_encode"] + ph["verify"]) * 1e-3
+        res["setup_host_ms"] = {k: ms[k] for k in probed}
+        return res
+
+    res = part("config4_million", chain)
+    if not (res["verified"] and res["matches_single"]):
+        raise AssertionError(f"config 4: {res}")
+    part("local_groth_bench", lambda: dict(
+        local_groth_bench.run(lgb_log2, device=dev), ok=True))
+    part("profile_msm", lambda: dict(
+        profile_msm.run(profile_log2, device=dev), ok=True))
+    launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    log("workloads: " + json.dumps(dict(
+        million_log2=million_log2, seconds=time.perf_counter() - t_phase,
+        wall_ms={k: v["wall_ms"] for k, v in parts.items()},
+        busy_ms={k: v["busy_ms"] for k, v in parts.items()},
+        peak_bytes={k: v["peak_bytes"] for k, v in parts.items()},
+        host_s={k: v["host_s"] for k, v in parts.items()})))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2899,6 +3037,8 @@ def main() -> int:
     lap("phase 12")
     launches_perf = phase_perf(dev)
     lap("phase 13")
+    launches_wl = phase_workloads(dev)
+    lap("phase 14")
 
     # every kernel launches on at least one path: kernel 2 (double) only on
     # the MPC and BLS paths' ladders, kernel 4 (ntt_small) only on the main
@@ -2927,6 +3067,7 @@ def main() -> int:
             launches_service_prove=launches_job[key],
             launches_http=launches_http[key],
             launches_perf=launches_perf[key],
+            launches_workloads=launches_wl[key],
             launches_by_bls_path={p: r["launches"].get(key, 0)
                                   for p, r in bls.items()},
             max_abs_err=err, match=err == 0, ms=e["ms"], kernel_ms=e["ms"],
@@ -2940,7 +3081,7 @@ def main() -> int:
                              for p, r in bls.items()},
         )
         for extra in ("cases", "chain_depth", "product_latency_us",
-                      "chain_bound_ms", "group"):
+                      "chain_bound_ms", "group", "plain_columns"):
             if extra in e:
                 row[extra] = e[extra]
         if "ladder" in e:
@@ -2960,7 +3101,8 @@ def main() -> int:
                 + row["launches_mpc64"] + row["launches_star"]
                 + row["launches_zkey"] + row["launches_batch"]
                 + row["launches_service_prove"]
-                + row["launches_http"] + row["launches_perf"]) == 0:
+                + row["launches_http"] + row["launches_perf"]
+                + row["launches_workloads"]) == 0:
             raise AssertionError(f"no path launched {key}")
         rows.append(row)
     print(json.dumps({"kernels": rows}))

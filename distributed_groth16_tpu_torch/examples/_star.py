@@ -1,5 +1,6 @@
-"""What every rank of an example shares: its command-line flags, its
-device, its connection to the star, and its last output line."""
+"""What the examples share: a rank's command-line flags, its device, its
+connection to the star and its last output line; the device fence and
+counters; the scalar draw of the JAX examples."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ import argparse
 import json
 import os
 
+import numpy as np
 import torch
 
 from ..ops import _cuda
@@ -70,6 +72,21 @@ def drain(dev: torch.device) -> None:
     """Wait for the device, so a host clock around device work reads it."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def draw_scalars(rng: np.random.Generator, n: int, r: int) -> list[int]:
+    """n scalars mod r, each from 40 little-endian bytes: the JAX example's
+    n calls of rng.bytes(40) give the same bytes as this one call (each
+    takes ten whole 32-bit words), at a tenth of the host time."""
+    raw = rng.bytes(40 * n)
+    return [int.from_bytes(raw[i : i + 40], "little") % r
+            for i in range(0, 40 * n, 40)]
+
+
+def reset_peak(dev: torch.device) -> None:
+    """Restart the device's peak-memory count (a no-op on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
 
 
 def device_stats(dev: torch.device) -> dict:

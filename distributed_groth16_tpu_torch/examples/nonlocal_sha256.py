@@ -36,8 +36,6 @@ import sys
 import time
 from pathlib import Path
 
-import torch
-
 from ..models.groth16 import (
     CompiledR1CS,
     ProvingKey,
@@ -53,7 +51,7 @@ from ..parallel.pss import pss
 from ..utils.timers import PhaseTimings, phase
 from ._star import (
     add_star_args, connect, device_stats, drain, open_device,
-    party_count, report,
+    party_count, report, reset_peak,
 )
 
 DEFAULT_CACHE = Path(__file__).resolve().parents[2] / ".bench_cache" / "torch"
@@ -107,8 +105,7 @@ def proof_bytes(proof) -> bytes:
 
 async def run(opt) -> int:
     dev = open_device(opt.device)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     n = party_count(opt)
     if n % 4 != 0:
         raise ValueError(f"party count {n} is not 4l")

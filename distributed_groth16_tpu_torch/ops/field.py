@@ -27,6 +27,7 @@ limb count, which keeps both CPU test runs and eager GPU runs short.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -34,6 +35,10 @@ import torch
 from .constants import LIMB_BITS, LIMB_MASK, N_LIMBS, Q, R, to_limbs
 
 MASK = LIMB_MASK
+
+# elements one PrimeField add, sub or mul takes at once: _mont_mul's
+# int64 temporaries come to ~2.5 KB an element
+BLOCK = 1 << 21
 
 
 def resolve_device(device) -> torch.device:
@@ -301,26 +306,47 @@ class PrimeField:
 
     # -- ring ops -------------------------------------------------------------
 
-    def add(self, a, b):
+    def _in_blocks(self, op, a, b):
+        """op(a, b) on the broadcast operands, in consecutive blocks of at
+        most BLOCK elements, so its int64 temporaries stay a few GB (the
+        2^22-point d_fft's pack multiplies 2^24 elements at once)."""
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        n = math.prod(shape[:-1])
+        if n <= BLOCK:
+            return op(a, b)
+        a2, b2 = (x.expand(shape).reshape(n, self.nl) for x in (a, b))
+        return torch.cat([op(a2[i : i + BLOCK], b2[i : i + BLOCK])
+                          for i in range(0, n, BLOCK)]).reshape(shape)
+
+    def _add(self, a, b):
         a, b = self._lm(a, b)
         return self._rm(_add_mod(a, b, self._col("p", a),
                                  self._col("pneg", a)))
 
-    def sub(self, a, b):
+    def _sub(self, a, b):
         a, b = self._lm(a, b)
         return self._rm(_sub_mod(a, b, self._col("p", a),
                                  self._col("comp", a)))
+
+    def _mul(self, a, b):
+        a, b = self._lm(a, b)
+        return self._rm(_mont_mul(
+            a, b, self._col("p", a), self._col("pinv", a),
+            self._col("pneg", a),
+        ))
+
+    def add(self, a, b):
+        return self._in_blocks(self._add, a, b)
+
+    def sub(self, a, b):
+        return self._in_blocks(self._sub, a, b)
 
     def neg(self, a):
         return self.sub(torch.zeros_like(a), a)
 
     def mul(self, a, b):
         """Montgomery product abR^{-1} mod p, canonical."""
-        a, b = self._lm(a, b)
-        return self._rm(_mont_mul(
-            a, b, self._col("p", a), self._col("pinv", a),
-            self._col("pneg", a),
-        ))
+        return self._in_blocks(self._mul, a, b)
 
     def sqr(self, a):
         return self.mul(a, a)

@@ -80,6 +80,16 @@ PORT_MODULES = [
     "distributed_groth16_tpu_torch.examples.nonlocal_kernel",
     "distributed_groth16_tpu_torch.examples.nonlocal_sha256",
     "distributed_groth16_tpu_torch.examples.launch",
+    "distributed_groth16_tpu_torch.examples.dfft_test",
+    "distributed_groth16_tpu_torch.examples.dmsm_bench",
+    "distributed_groth16_tpu_torch.examples.dpp_test",
+    "distributed_groth16_tpu_torch.examples.million",
+    "distributed_groth16_tpu_torch.examples.local_groth_bench",
+    "distributed_groth16_tpu_torch.examples.sha256",
+    "distributed_groth16_tpu_torch.examples.introspect",
+    "distributed_groth16_tpu_torch.examples.profile_msm",
+    "distributed_groth16_tpu_torch.examples.profile_packing",
+    "distributed_groth16_tpu_torch.examples.mesh_scale_run",
     "distributed_groth16_tpu_torch.parallel.mesh",
     "distributed_groth16_tpu_torch.models.groth16.mesh_prover",
     "distributed_groth16_tpu_torch.telemetry",
