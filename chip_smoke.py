@@ -33,9 +33,14 @@ result line):
      round over LocalSimNet (d_fft, the local tree MSMs with kernels 1 and
      3, the king's unpack), reassemble_proof -> verify; the proof equals
      phase 4's prove_single proof byte for byte; then a round at
-     r, s != 0 that must verify. Counters zeroed before, read after. Then
-     a pack and a round under torch.profiler, for each kernel's device
-     time per MPC proof (kernels 1 and 2 split by launch width);
+     r, s != 0 that must verify. Counters zeroed before, read after.
+     Between them four r = s = 0 rounds with the aggregation plane on,
+     idle, idle, on: the same proof; with the plane on, 8 merged tracks,
+     each prove.party holding prove.h and the dfft / dmsm / net.* spans,
+     and a critical path; each round's ms. Then a pack and a round under
+     torch.profiler, for
+     each kernel's device time per MPC proof (kernels 1 and 2 split by
+     launch width);
   7. BLS12 paths (the 12-word kernels, checked in phase 3 too), each run
      once under torch.profiler with the counters zeroed before and read
      after: (a) examples/dmsm_bench.py --curve bls12-377 at its top size,
@@ -72,9 +77,13 @@ result line):
      runs setup and packs by the scalar route, ranks 1-7 load the key and
      pack in the exponent): the proof verifies and equals phase 4's
      prove_single proof byte for byte, every rank launched kernels 1 and 3
-     on G1 and G2 and the king kernel 2 on both. Logs each rank's phase
-     ms and peak memory, the star's wall time, nvidia-smi's memory.used
-     and the socket round beside phase 6's in-process one;
+     on G1 and G2 and the king kernel 2 on both. Its ranks run the
+     aggregation plane: the king merges 8 tracks (clients rebased by
+     their clock offsets, each with a clock sample), at least 7
+     TELEMETRY frames, non-zero wire bytes per peer. Logs each rank's
+     phase ms and peak memory, the star's wall time, nvidia-smi's
+     memory.used, the king's critical path and the socket round beside
+     phase 6's in-process one;
  10. a circom/snarkjs user's path on phase 4's circuit and key: .r1cs,
      .wtns and .zkey written to a temporary directory and read back (the
      key onto the card by ProvingKey.from_zkey), each equal to the
@@ -119,7 +128,9 @@ result line):
      fleet/, telemetry/profiler.py), on phase 4's circuit and witness:
      replica 1, an ApiServer on the card with batching off, runs
      /save_circuit (setup on the card), /create_proof_without_mpc and
-     /create_proof_with_naive_mpc (both equal to phase 4's proof),
+     /create_proof_with_naive_mpc (both equal to phase 4's proof; the
+     naive-MPC job's trace one pid track per party, its criticalPath over
+     the 8 parties),
      /verify_proof (true; false with a public input plus one), /healthz,
      /readyz (buildInfo names the card) and /metrics (dg16_build_info,
      device_memory_bytes); replica 2 on the same card and store, batching
@@ -151,8 +162,9 @@ result line):
      two points; (c) config 4, million's chain proved by the 8-party round
      at 2^WORKLOAD_MILLION_LOG2 constraints (cut from 2^20 for the time
      limit; 2^20 runs as its own call), verifying and equal to
-     prove_single's; (d) local_groth_bench at 2^15 and profile_msm at
-     2^20. Each part under a device-only trace: its wall ms, device-busy
+     prove_single's, with --agg-out: 8 merged tracks and the round's
+     critical path beside the part's wall and busy time; (d)
+     local_groth_bench at 2^15 and profile_msm at 2^20. Each part under a device-only trace: its wall ms, device-busy
      ms, peak bytes, host bigint seconds, launches and device ms per
      kernel. Counters zeroed before the phase, read after.
 
@@ -990,13 +1002,50 @@ def phase_main_path(dev, circuit, log_m=15):
                                         per_proof_ms=per_proof_ms)
 
 
+# the spans every party's track holds after a full proving round with the
+# aggregation plane on (a dfft.fft or dfft.ifft besides)
+ROUND_SPANS = ("prove.party", "prove.h", "prove.A", "prove.B", "prove.C",
+               "dmsm", "net.gather_to_king", "net.scatter_from_king",
+               "net.king_compute")
+
+
+def span_names(events) -> dict:
+    """{party: {span name: count}} of a list of trace events."""
+    out = {}
+    for e in events:
+        names = out.setdefault(int(e["pid"]), {})
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    return out
+
+
+def check_tracks(what, names, n, cp) -> None:
+    """names: {party: {span name: count}} of one merged round, cp its
+    critical path. Fails unless there is one track per party, each with
+    the round's spans, and the critical path covers the n parties."""
+    if sorted(int(p) for p in names) != list(range(n)):
+        raise AssertionError(f"{what}: tracks {sorted(names)}, not 0..{n - 1}")
+    for p, got in names.items():
+        missing = [k for k in ROUND_SPANS if not got.get(k)]
+        if not any(k.startswith("dfft.") for k in got):
+            missing.append("dfft.*")
+        if missing:
+            raise AssertionError(f"{what}: party {p}'s track lacks {missing}")
+    if not cp or cp.get("parties") != n or not cp.get("wall"):
+        raise AssertionError(f"{what}: critical path {cp}")
+
+
 def phase_mpc(dev, ctx, l=2):
     """Phase 6: the MPC prover as the proof service runs it for an
     "mpc_prove" job: the key loaded from its .npz (no dealer scalars, so
     packed in the exponent), QAP and witness shares, one n = 4l party round
     over LocalSimNet, reassembly and verification. The r = s = 0 proof must
     equal phase 4's prove_single proof byte for byte; a second round at
-    r, s != 0 must verify. Returns the launch counts of the r = s = 0
+    r, s != 0 must verify. Between the two, four more r = s = 0 rounds,
+    the aggregation plane (DG16_AGG's in-process half) on, idle, idle, on:
+    each gives the same proof, and each with the plane on one merged
+    track per party holding prove.party around prove.h and the dfft /
+    dmsm / net.* spans, and a critical path over the 8 parties; the four
+    rounds' ms are logged. Returns the launch counts of the r = s = 0
     pack and round."""
     import numpy as np
     import torch
@@ -1082,6 +1131,51 @@ def phase_mpc(dev, ctx, l=2):
     log(f"mpc path peak device memory (pack + round): {peak} bytes")
     log(f"mpc path: proof verifies and equals prove_single's "
         f"({len(proof_bytes(proof))} bytes)")
+
+    # the round with the aggregation plane on, in turns with the plane
+    # idle (on, idle, idle, on: rounds vary by more than the plane costs).
+    # Its spans mark host time: a span can close before the device work it
+    # launched (the king's phase marks drain the card, as in every round)
+    from distributed_groth16_tpu_torch.telemetry import aggregate
+
+    turns = {True: [], False: []}
+    for on in (True, False, False, True):
+        if on:
+            aggregate.set_enabled(True)
+            agg = aggregate.reset_aggregator()
+        try:
+            res, king_turn = round_()
+            if on:
+                events, cp = agg.events(), agg.last_critical_path
+        finally:
+            if on:
+                aggregate.set_enabled(False)
+                aggregate.reset_aggregator()
+        turns[on].append(king_turn["round"])
+        if proof_bytes(reassemble_proof(res[0], pk)) != proof_bytes(proof):
+            raise AssertionError("a round with the plane "
+                                 f"{'on' if on else 'idle'} gave another "
+                                 "proof")
+        if not on:
+            continue
+        names = span_names(events)
+        check_tracks("mpc path, plane on", names, pp.n, cp)
+        for p in range(pp.n):
+            outer = [e for e in events
+                     if e["pid"] == p and e["name"] == "prove.party"]
+            inner = [e for e in events
+                     if e["pid"] == p and e["name"] == "prove.h"]
+            if len(outer) != 1 or len(inner) != 1 or not (
+                    outer[0]["ts"] <= inner[0]["ts"]
+                    and inner[0]["ts"] + inner[0]["dur"]
+                    <= outer[0]["ts"] + outer[0]["dur"]):
+                raise AssertionError(f"party {p}: prove.party does not hold "
+                                     "prove.h")
+    ctx["mpc_round_agg"] = dict(round=turns[True], critical_path=cp)
+    log("mpc path round, aggregation plane on: " + json.dumps(dict(
+        round_ms_plane_on=turns[True], round_ms_plane_idle=turns[False],
+        round_ms_first=king["round"], critical_path_s=cp,
+        spans=len(events), spans_per_party=names[0])))
 
     rng = np.random.default_rng(2025)
     r = int.from_bytes(rng.bytes(40), "little") % R
@@ -1607,6 +1701,10 @@ STAR_PLAIN = False
 STAR_KERNELS = ("limb_add_g1", "limb_add_g2", "limb_horner_g1",
                 "limb_horner_g2")
 KING_KERNELS = ("limb_double_g1", "limb_double_g2")
+# the SHA-256 star's ranks run the aggregation plane (DG16_AGG) with
+# heartbeats this often, so the king has every client's clock sample
+# before the round ends (the default, 15 s, outlasts the round)
+STAR_AGG_ENV = {"DG16_AGG": "1", "DG16_NET_HEARTBEAT_S": "0.25"}
 
 
 @contextmanager
@@ -1645,8 +1743,13 @@ def phase_star(dev, ctx, n=8):
     key cache, so rank 0 runs setup (seed 42) and ranks 1.. load its .npz:
     every rank exits 0, rank 0's proof verifies and equals phase 4's
     prove_single proof byte for byte, every rank launched kernels 1 and 3
-    on G1 and G2, and the king kernel 2 on both. Returns the kernels'
-    launches summed over the ranks of (c)."""
+    on G1 and G2, and the king kernel 2 on both. (c)'s ranks run with the
+    aggregation plane on (STAR_AGG_ENV, in their environment only): the
+    king merges 8 tracks, each client's spans rebased by its clock
+    offset, every client has a clock sample, the king received at least
+    7 TELEMETRY frames, and every peer's wire bytes are non-zero; the
+    king's king / straggler / wire / wall split is logged. Returns the
+    kernels' launches summed over the ranks of (c)."""
     import torch
 
     from distributed_groth16_tpu_torch.examples.launch import launch
@@ -1674,12 +1777,24 @@ def phase_star(dev, ctx, n=8):
             f"{time.perf_counter() - t0:.1f} s, rank ms "
             + json.dumps([x["ms"] for x in lines]))
 
-    with tempfile.TemporaryDirectory() as cache, smi_memory_peak() as mem:
-        t0 = time.perf_counter()
-        lines = launch("nonlocal_sha256", n,
-                       ["--circuit", "sha256", "--msg", "abc",
-                        "--cache-dir", cache], **star)
-        wall = (time.perf_counter() - t0) * 1e3
+    # launch.py hands the ranks a copy of os.environ: set the plane's knobs
+    # for them, and put the parent's environment back afterwards
+    saved = {k: os.environ.get(k) for k in STAR_AGG_ENV}
+    os.environ.update(STAR_AGG_ENV)
+    try:
+        with tempfile.TemporaryDirectory() as cache, \
+                smi_memory_peak() as mem:
+            t0 = time.perf_counter()
+            lines = launch("nonlocal_sha256", n,
+                           ["--circuit", "sha256", "--msg", "abc",
+                            "--cache-dir", cache], **star)
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     king = lines[0]
     if not king.get("verified"):
         raise AssertionError("the star's proof does not verify")
@@ -1697,6 +1812,27 @@ def phase_star(dev, ctx, n=8):
             phases_ms=x["phases_ms"], round_ms=x["round_ms"],
             peak_bytes=x["peak_bytes"],
             launches={k: v for k, v in x["launches"].items() if v})))
+    agg = king.get("agg")
+    if not agg or not agg["complete"]:
+        raise AssertionError(f"the king's plane did not close the round: "
+                             f"{agg}")
+    check_tracks("star sha256", agg["spans"], n, agg["critical_path"])
+    peers = agg["peers"]
+    if sorted(peers) != [str(i) for i in range(1, n)]:
+        raise AssertionError(f"the king's peers: {sorted(peers)}")
+    unsampled = [p for p, v in peers.items() if v["clock_samples"] < 1]
+    if unsampled:
+        raise AssertionError(f"no clock sample from clients {unsampled}")
+    frames = sum(v["telemetry_frames_recv"] for v in peers.values())
+    if frames < n - 1:
+        raise AssertionError(f"the king merged {frames} TELEMETRY frames")
+    silent = [p for p, v in peers.items()
+              if not (v["bytes_sent"] and v["bytes_recv"])]
+    if silent:
+        raise AssertionError(f"no wire bytes counted for peers {silent}")
+    log("star sha256 critical path: " + json.dumps(dict(
+        critical_path_s=agg["critical_path"], telemetry_frames=frames,
+        peers=peers)))
     rounds = [x["phases_ms"]["MPC prove (over sockets)"] for x in lines]
     log("star sha256: " + json.dumps(dict(
         wall_ms=wall, socket_round_ms_max=max(rounds),
@@ -2386,7 +2522,9 @@ def phase_http(dev, ctx, n_batch=4, n_router=4, profile_s=3.0, n_pairs=3):
     ApiServer on the card with batching off: /save_circuit (setup on the
     card), /create_proof_without_mpc and /create_proof_with_naive_mpc
     (the per-job funnel: prove_single, and the 8-party round), each proof
-    equal to phase 4's prove_single proof; /verify_proof true, and false
+    equal to phase 4's prove_single proof, the naive-MPC job's trace one
+    pid track per party and its criticalPath over the 8 parties (GET
+    /jobs/{id}, /jobs/{id}/trace); /verify_proof true, and false
     with a public input plus one; /healthz, /readyz (buildInfo names the
     card), /metrics (dg16_build_info, device_memory_bytes). (b) Replica 2
     on the same card and store, batching on (batch_max 4): /readyz
@@ -2491,6 +2629,22 @@ def phase_http(dev, ctx, n_batch=4, n_router=4, profile_s=3.0, n_pairs=3):
                     raise AssertionError(f"{route} differs from "
                                          f"prove_single's: {status}")
                 out[f"{route}_phases"] = body.get("phases")
+            # the naive-MPC job's party tracks: its trace holds one pid
+            # track per party and its critical path covers the n parties
+            jobs = [j for j in r1.queue.jobs.values()
+                    if j.kind == "mpc_prove"]
+            if len(jobs) != 1:
+                raise AssertionError(f"{len(jobs)} naive-MPC jobs")
+            status, st = await call("job_status", "GET",
+                                    f"{url1}/jobs/{jobs[0].id}")
+            status_t, tr = await call("job_trace", "GET",
+                                      f"{url1}/jobs/{jobs[0].id}/trace")
+            if status != 200 or status_t != 200:
+                raise AssertionError(f"naive-MPC job: {status} {status_t}")
+            cp = st["metrics"]["criticalPath"]
+            check_tracks("naive-MPC job", span_names(
+                e for e in tr["traceEvents"] if e.get("ph") == "X"), 8, cp)
+            out["mpc_job_critical_path"] = cp
             for publics, valid in ((pubs, True),
                                    ([str(int(pubs[0]) + 1)] + pubs[1:],
                                     False)):
@@ -2887,7 +3041,10 @@ def phase_workloads(dev, million_log2=WORKLOAD_MILLION_LOG2,
         same input and to refmath at two points w^k;
     (c) config 4, million: the chain of 2^million_log2 constraints proved
         by the 8-party MPC round (scalar-route pack, strip=True); the
-        proof verifies and equals prove_single's on the same key;
+        proof verifies and equals prove_single's on the same key; with
+        --agg-out, the merged trace has 8 tracks and the round's critical
+        path (king / straggler / wire / wall) is logged beside the part's
+        wall and device-busy time;
     (d) local_groth_bench at m = 2^lgb_log2 (6 FFTs and 5 MSMs, G2 too)
         and profile_msm at 2^profile_log2 (the tree MSM's stages).
     Each part runs under a device-only trace, the counters zeroed before
@@ -2945,8 +3102,12 @@ def phase_workloads(dev, million_log2=WORKLOAD_MILLION_LOG2,
     def chain():
         probed = {"qap_at_tau": (setup_mod, "_qap_polys_at_tau"),
                   "setup_encode": (setup_mod, "encode_scalars_std")}
-        with probes(dev, probed) as ms:
-            res = million.run(million_log2, 2, match_single=True, device=dev)
+        with probes(dev, probed) as ms, tempfile.TemporaryDirectory() as tmp:
+            res = million.run(million_log2, 2, match_single=True, device=dev,
+                              agg_out=os.path.join(tmp, "million.json"))
+            with open(os.path.join(tmp, "million.json")) as f:
+                merged = json.load(f)["traceEvents"]
+        res["agg_trace_events"] = len(merged)
         ph = res["phases_ms"]
         res["host_s"] = (ph["build circuit"] + ms["qap_at_tau"]
                          + ms["setup_encode"] + ph["verify"]) * 1e-3
@@ -2956,6 +3117,15 @@ def phase_workloads(dev, million_log2=WORKLOAD_MILLION_LOG2,
     res = part("config4_million", chain)
     if not (res["verified"] and res["matches_single"]):
         raise AssertionError(f"config 4: {res}")
+    cp = res["critical_path"]
+    if res["agg_tracks"] != 8 or not cp or cp["parties"] != 8:
+        raise AssertionError(f"config 4's merged trace: {res['agg_tracks']} "
+                             f"tracks, critical path {cp}")
+    rec = parts["config4_million"]
+    log("workload config4_million round: " + json.dumps(dict(
+        critical_path_s=cp, round_ms=res["phases_ms"]["MPC Proof"],
+        part_wall_ms=rec["wall_ms"], part_busy_ms=rec["busy_ms"],
+        tracks=res["agg_tracks"], trace_events=res["agg_trace_events"])))
     part("local_groth_bench", lambda: dict(
         local_groth_bench.run(lgb_log2, device=dev), ok=True))
     part("profile_msm", lambda: dict(

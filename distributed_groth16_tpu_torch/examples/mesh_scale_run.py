@@ -21,6 +21,9 @@ Departures from the JAX script:
   * every phase ends in torch.cuda.synchronize().
 """
 
+# dg16lint: disable-file=DG108 — the printed lines are the script's output
+# contract, as in the JAX script
+
 from __future__ import annotations
 
 import argparse
@@ -65,7 +68,8 @@ def run(m: int = 4096, check: bool = False, device=None) -> dict:
 
     with phase("packing", timings):
         qap_shares = comp.qap(z_mont).pss(pp)
-        crs = pack_proving_key(pk, pp)
+        # strip=True: nothing below reads the dealer's query scalars
+        crs = pack_proving_key(pk, pp, strip=True)
 
         def stack(get):
             return torch.stack([get(i) for i in range(pp.n)])

@@ -6,8 +6,8 @@ one process (LocalSimNet), or single-node with --skip-mpc.
 
   python -m distributed_groth16_tpu_torch.examples.million \\
       [--log2-constraints 20] [--l 2] [--x0 999992] [--skip-mpc] \\
-      [--round-retries 2] [--trace-out t.json] [--match-single] \\
-      [--device cpu]
+      [--round-retries 2] [--trace-out t.json] [--agg-out m.json] \\
+      [--match-single] [--device cpu]
 
 BASELINE config 4 is the default: 2^20 constraints, l = 2, n = 8. Use a
 smaller --log2-constraints on the CPU.
@@ -16,12 +16,16 @@ The flags, defaults and printed lines are the JAX example's, plus --device
 (default cuda; only an explicit cpu runs on the CPU) and --match-single.
 The last output line is JSON: run()'s dict (phases_ms, the king's round
 marks round_ms, the pack's ms per query pack_ms, the kernels' launch
-counts and the peak device bytes).
+counts and the peak device bytes; with --agg-out also agg_tracks and
+critical_path, the round's king / straggler / wire / wall split in
+seconds).
+
+--agg-out turns the aggregation plane on (DG16_AGG), drops the dealer's
+spans before the round, and after it writes the merged per-party trace
+(one track per party) and prints the round's critical path. Its spans
+mark host time: a span can close before the device work it launched.
 
 Departures from the JAX example:
-  * --agg-out (the star-wide aggregation plane) is left out until the
-    port's net layer has its telemetry hooks: without them it would
-    write an empty merged trace;
   * --match-single also proves single-node on the same key and requires
     the MPC proof to equal it (both at r = s = 0);
   * two more phases: "compile" (the witness encode and CompiledR1CS,
@@ -31,11 +35,13 @@ Departures from the JAX example:
     unless DG16_NET_OP_TIMEOUT_S is set, as in JAX.
 """
 
+# dg16lint: disable-file=DG108 — the printed lines are the example's output
+# contract, as in the JAX example
+
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 import time
 from dataclasses import replace
@@ -54,8 +60,8 @@ from ..models.groth16 import (
 from ..ops.field import fr
 from ..parallel.net import run_round_with_retries
 from ..parallel.pss import pss
-from ..telemetry import tracing
-from ..utils.config import NetConfig
+from ..telemetry import aggregate, tracing
+from ..utils.config import NetConfig, env_str
 from ..utils.timers import PhaseTimings, phase
 from ._star import device_stats, drain, open_device, reset_peak
 
@@ -63,11 +69,15 @@ from ._star import device_stats, drain, open_device, reset_peak
 def run(log2_constraints: int = 20, l: int = 2, x0: int = 999992,
         skip_mpc: bool = False, round_retries: int = 2,
         trace_out: str | None = None, match_single: bool = False,
-        device=None) -> dict:
+        device=None, agg_out: str | None = None) -> dict:
     dev = open_device(device)
     reset_peak(dev)
     if trace_out:
         tracing.enable_global(trace_out)
+    agg_was_on = aggregate.enabled()
+    if agg_out:
+        aggregate.set_enabled(True)
+        aggregate.reset_aggregator()
     timings = PhaseTimings()
     nc = (1 << log2_constraints) - 2  # domain = 2^log2_constraints
 
@@ -124,8 +134,14 @@ def run(log2_constraints: int = 20, l: int = 2, x0: int = 999992,
         # Deadlines also can't detect a dead peer here (there is no peer
         # process) — default them off unless explicitly configured.
         net_cfg = NetConfig.from_env()
-        if "DG16_NET_OP_TIMEOUT_S" not in os.environ:
+        if not env_str("DG16_NET_OP_TIMEOUT_S"):
             net_cfg = replace(net_cfg, op_timeout_s=0.0)
+
+        if agg_out:
+            # the dealer phases above (setup, packing) are king-process
+            # spans too; drop them so the merged trace and the
+            # critical-path decomposition cover exactly the MPC round
+            aggregate.drain()
 
         with phase("MPC Proof", timings):
             # a transient transport fault (timeout, dead link) re-runs the
@@ -149,6 +165,20 @@ def run(log2_constraints: int = 20, l: int = 2, x0: int = 999992,
         print(f"MPC proof verifies: {ok}")
         out.update(ok=ok, verified=ok, l=pp.l, n=pp.n, pack_ms=pack_ms,
                    round_ms=round_ms)
+        if agg_out:
+            agg = aggregate.aggregator()
+            agg.dump(agg_out)
+            print(f"merged star trace ({len(agg.parties())} tracks) "
+                  f"written to {agg_out}")
+            cp = agg.last_critical_path
+            if cp:
+                print("round critical path (s): "
+                      f"king {cp['king']:.3f}  "
+                      f"straggler {cp['straggler']:.3f} "
+                      f"(party {cp['stragglerParty']})  "
+                      f"wire {cp['wire']:.3f}  wall {cp['wall']:.3f}")
+            out.update(agg_tracks=len(agg.parties()), critical_path=cp)
+            aggregate.set_enabled(agg_was_on)
         if match_single:
             with phase("single-node prove", timings):
                 single = prove_single(pk, comp, z_mont)
@@ -182,6 +212,10 @@ def main(argv=None) -> int:
     p.add_argument("--trace-out", default=None,
                    help="write a Chrome trace-event JSON timeline of the "
                         "proof (open in chrome://tracing or Perfetto)")
+    p.add_argument("--agg-out", default=None,
+                   help="enable the star-wide aggregation plane (DG16_AGG) "
+                        "and write the merged per-party trace here, with a "
+                        "critical-path summary — king vs straggler vs wire")
     p.add_argument("--match-single", action="store_true",
                    help="also prove single-node on the same key; the MPC "
                         "proof must equal it")
@@ -190,7 +224,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     res = run(args.log2_constraints, args.l, args.x0, args.skip_mpc,
               args.round_retries, args.trace_out, args.match_single,
-              args.device)
+              args.device, args.agg_out)
     print(json.dumps(res))
     return 0 if res["ok"] else 1
 

@@ -23,8 +23,18 @@ points, so the proof is the same.
 The last output line is JSON: {"party", "ok", "phases_ms", "round_ms"
 (this rank's h / ab / c), "launches", "peak_bytes"}, and on rank 0 also
 "verified" and "proof" (the hex of the affine proof, a | b | c as 32-byte
-little-endian words).
+little-endian words). With DG16_AGG set (the aggregation plane) every
+rank drops its dealer spans before the round, each client ships its
+round's spans to the king in a TELEMETRY frame, and rank 0 waits for
+them and adds "agg": the parties merged, each track's span names, the
+last critical path, and per peer the clock estimate and wire counters
+(star_telemetry below). A client's frame merges once the king has a
+clock sample from it, so set DG16_NET_HEARTBEAT_S well below the
+round's length.
 """
+
+# dg16lint: disable-file=DG108 — the printed lines are the example's output
+# contract, as in the JAX example
 
 from __future__ import annotations
 
@@ -48,10 +58,13 @@ from ..models.groth16 import (
 )
 from ..ops.field import fr
 from ..parallel.pss import pss
+from ..parallel.prodnet import ProdNet
+from ..telemetry import aggregate
+from ..telemetry import metrics as _tm
 from ..utils.timers import PhaseTimings, phase
 from ._star import (
-    add_star_args, connect, device_stats, drain, open_device,
-    party_count, report, reset_peak,
+    add_star_args, connect, device_stats, drain, open_device, party_count,
+    report, reset_peak,
 )
 
 DEFAULT_CACHE = Path(__file__).resolve().parents[2] / ".bench_cache" / "torch"
@@ -97,6 +110,64 @@ def load_or_make_pk(r1cs, opt, dev) -> ProvingKey:
     return ProvingKey.load(path, device=dev)
 
 
+async def await_tracks(net: ProdNet, timeout_s: float) -> bool:
+    """King side, aggregation plane on: wait until every party's
+    TELEMETRY has merged and the round is closed (a client's frame waits
+    for its first clock sample, so this takes up to a heartbeat interval
+    or two). False when `timeout_s` passes first; close() then merges any
+    frame still held, unaligned."""
+    agg = aggregate.aggregator()
+    end = asyncio.get_running_loop().time() + timeout_s
+    while set(agg.parties()) < set(range(net.n_parties)) or (
+        agg.last_critical_path is None
+    ):
+        if asyncio.get_running_loop().time() > end:
+            return False
+        await asyncio.sleep(0.05)
+    return True
+
+
+def _peer_sum(name: str, peer: int) -> float:
+    """A per-peer counter summed over its other labels (0 when the
+    family was never registered)."""
+    fam = _tm.registry().family(name)
+    if fam is None:
+        return 0.0
+    i = fam.labelnames.index("peer")
+    return sum(child.value for key, child in fam.items()
+               if key[i] == str(peer))
+
+
+def star_telemetry(net: ProdNet) -> dict:
+    """The king's aggregation plane after a round: the tracks merged, each
+    track's span names with their counts, the last round's critical path
+    (seconds), and per peer the clock estimate (samples, offset and rtt
+    in ns) and the wire counters."""
+    agg = aggregate.aggregator()
+    spans: dict[str, dict[str, int]] = {}
+    for e in agg.events():
+        names = spans.setdefault(str(e["pid"]), {})
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    peers = {}
+    for peer, clock in sorted(net._clocks.items()):
+        peers[str(peer)] = {
+            "clock_samples": clock.n_samples,
+            "offset_ns": clock.offset_ns,
+            "rtt_ns": clock.rtt_ns,
+            **{key: _peer_sum(name, peer) for key, name in (
+                ("bytes_sent", "net_bytes_sent_total"),
+                ("bytes_recv", "net_bytes_recv_total"),
+                ("frames_sent", "net_frames_sent_total"),
+                ("frames_recv", "net_frames_recv_total"),
+                ("heartbeats_sent", "net_heartbeats_sent_total"),
+                ("telemetry_frames_recv", "telemetry_frames_recv_total"),
+            )},
+        }
+    return {"parties": len(agg.parties()), "tracks": agg.parties(),
+            "spans": spans, "critical_path": agg.last_critical_path,
+            "peers": peers}
+
+
 def proof_bytes(proof) -> bytes:
     """Affine coordinates as 32-byte little-endian words, a | b | c."""
     words = [*proof.a, *proof.b[0], *proof.b[1], *proof.c]
@@ -127,6 +198,11 @@ async def run(opt) -> int:
     with phase("connect", timings):
         net = await connect(opt, n, dev)
     round_ms: dict = {}
+    agg = None
+    if aggregate.enabled():
+        # the dealer phases and the connect are this process's spans too:
+        # drop them so the merged trace covers exactly the round
+        aggregate.drain()
     try:
         with phase("MPC prove (over sockets)", timings):
             share = await distributed_prove_party(
@@ -134,11 +210,21 @@ async def run(opt) -> int:
                 timings=round_ms,
             )
             drain(dev)
+        if aggregate.enabled():
+            # the phase span wraps the whole round: keep it out of the
+            # shutdown flush, as the dealer's spans are kept out above
+            aggregate.drain()
+            if opt.id == 0:
+                waited = await await_tracks(
+                    net, 10.0 + 4 * net.net_cfg.heartbeat_interval_s)
+                agg = dict(star_telemetry(net), complete=waited)
     finally:
         await net.close()
 
     line = {"party": opt.id, "ok": True, "phases_ms": timings.as_millis(),
             "round_ms": round_ms}
+    if agg is not None:
+        line["agg"] = agg
     if opt.id == 0:
         proof = reassemble_proof(share, pk)
         ok = verify(pk.vk, proof, pubs)

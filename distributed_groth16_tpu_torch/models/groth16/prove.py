@@ -19,6 +19,12 @@ plus the witness-packing helper (sha256.rs:97-121) and the proof
 reassembly a += a_query[0] + alpha_g1, b += b_g2_query[0] + beta_g2
 (sha256.rs:208-212). d_msm hands the clear MSM value to every party, so
 any party's (A, B, C) is the clear proof core.
+
+A party's round records the JAX package's spans: prove.party around
+prove.h and prove.A / prove.B / prove.C, each holding the dfft.* / dmsm
+and net.* spans of the collectives below it; with the aggregation plane
+on (DG16_AGG) the party flushes its telemetry at the round boundary,
+outside prove.party.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from ...parallel.dmsm import d_msm
 from ...parallel.net import Net
 from ...parallel.packing import pack_consecutive
 from ...parallel.pss import PackedSharingParams
+from ...telemetry import aggregate as _aggregate
+from ...telemetry import tracing as _tracing
 from .ext_wit import h as ext_wit_h
 from .keys import Proof, ProvingKey
 from .proving_key import PackedProvingKeyShare
@@ -152,35 +160,38 @@ def prove_single(
 
 async def compute_A(pp: PackedSharingParams, S, a_share, net: Net,
                     sid: int = 0, L=None, N=None, r: int = 0):
-    prod = await d_msm(g1(), S, a_share, pp, net, sid)
-    return _acc(g1(), prod.device, L, _maybe_mul(g1(), N, r), prod)
+    with _tracing.span("prove.A", party=net.party_id, sid=sid):
+        prod = await d_msm(g1(), S, a_share, pp, net, sid)
+        return _acc(g1(), prod.device, L, _maybe_mul(g1(), N, r), prod)
 
 
 async def compute_B(pp: PackedSharingParams, V, a_share, net: Net,
                     sid: int = 0, Z=None, K=None, s: int = 0):
-    prod = await d_msm(g2(), V, a_share, pp, net, sid)
-    return _acc(g2(), prod.device, Z, _maybe_mul(g2(), K, s), prod)
+    with _tracing.span("prove.B", party=net.party_id, sid=sid):
+        prod = await d_msm(g2(), V, a_share, pp, net, sid)
+        return _acc(g2(), prod.device, Z, _maybe_mul(g2(), K, s), prod)
 
 
 async def compute_C(pp: PackedSharingParams, W, U, H, a_share, ax_share,
                     h_share, net: Net, A=None, M=None, r: int = 0,
                     s: int = 0):
-    msms = [
-        d_msm(g1(), W, ax_share, pp, net, 0),
-        d_msm(g1(), U, h_share, pp, net, 1),
-    ]
-    # the H-query MSM only feeds the r-weighted term: skip the whole
-    # distributed round when r == 0
-    if r % fr().p != 0:
-        msms.append(d_msm(g1(), H, a_share, pp, net, 2))
-    results = await asyncio.gather(*msms)
-    w, u = results[0], results[1]
-    h_msm = results[2] if len(results) > 2 else None
-    return _acc(
-        g1(), w.device, w, u,
-        _maybe_mul(g1(), A, s), _maybe_mul(g1(), M, r),
-        _maybe_mul(g1(), h_msm, r),
-    )
+    with _tracing.span("prove.C", party=net.party_id):
+        msms = [
+            d_msm(g1(), W, ax_share, pp, net, 0),
+            d_msm(g1(), U, h_share, pp, net, 1),
+        ]
+        # the H-query MSM only feeds the r-weighted term: skip the whole
+        # distributed round when r == 0
+        if r % fr().p != 0:
+            msms.append(d_msm(g1(), H, a_share, pp, net, 2))
+        results = await asyncio.gather(*msms)
+        w, u = results[0], results[1]
+        h_msm = results[2] if len(results) > 2 else None
+        return _acc(
+            g1(), w.device, w, u,
+            _maybe_mul(g1(), A, s), _maybe_mul(g1(), M, r),
+            _maybe_mul(g1(), h_msm, r),
+        )
 
 
 def pack_from_witness(pp: PackedSharingParams, values: torch.Tensor):
@@ -244,24 +255,35 @@ async def distributed_prove_party(
     if zk and pub is None:
         raise ValueError("randomized proof needs pub=public_prove_consts(pk)")
     ph = _Phases(timings, a_share.device)
-    h_share = await ext_wit_h(qap_share, pp, net)
-    ph.mark("h")
-    pi_a, pi_b = await asyncio.gather(
-        compute_A(pp, crs_share.s, a_share, net, 0,
-                  N=pub["N"] if zk else None, r=r),
-        compute_B(pp, crs_share.v, a_share, net, 1,
-                  K=pub["K"] if zk else None, s=s),
-    )
-    ph.mark("ab")
-    pi_c = await compute_C(
-        pp, crs_share.w, crs_share.u, crs_share.h, a_share, ax_share,
-        h_share, net,
-        A=g1().add(pi_a, pub["A0"]) if zk else None,
-        M=pub["M"] if zk else None,
-        r=r, s=s,
-    )
-    ph.mark("c")
-    return PartyProofShare(a=pi_a, b=pi_b, c=pi_c)
+    with _tracing.span("prove.party", party=net.party_id):
+        with _tracing.span("prove.h", party=net.party_id):
+            h_share = await ext_wit_h(qap_share, pp, net)
+        ph.mark("h")
+        pi_a, pi_b = await asyncio.gather(
+            compute_A(pp, crs_share.s, a_share, net, 0,
+                      N=pub["N"] if zk else None, r=r),
+            compute_B(pp, crs_share.v, a_share, net, 1,
+                      K=pub["K"] if zk else None, s=s),
+        )
+        ph.mark("ab")
+        pi_c = await compute_C(
+            pp, crs_share.w, crs_share.u, crs_share.h, a_share, ax_share,
+            h_share, net,
+            A=g1().add(pi_a, pub["A0"]) if zk else None,
+            M=pub["M"] if zk else None,
+            r=r, s=s,
+        )
+        ph.mark("c")
+        share = PartyProofShare(a=pi_a, b=pi_b, c=pi_c)
+    # round boundary: ship this party's compacted spans to the king
+    # (a TELEMETRY frame on ProdNet; a no-op in-process, where the round
+    # harness merges). Outside the prove.party span so the flush itself
+    # never pollutes the round's timeline.
+    if _aggregate.enabled():
+        flush = getattr(net, "flush_telemetry", None)
+        if flush is not None:
+            await flush()
+    return share
 
 
 def reassemble_proof(share: PartyProofShare, pk: ProvingKey) -> Proof:

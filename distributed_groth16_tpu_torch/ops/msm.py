@@ -23,6 +23,16 @@ limb group (kernel 1 on the card). The JAX package runs one tree over
 all points; the tree keeps every level of its sum tree, so one 2^24-point
 BLS12-381 tree does not fit on an 80 GB card. An MSM is linear, so the
 result is the same point.
+
+Each call counts its route in kernel_route_total{kernel, path} at
+dispatch, as the JAX package does. kernel="msm": "tree", "ladder",
+"pippenger" and "pippenger_chunked" where the port runs what the JAX
+package's path of that name runs; "tree" also for 128 < n < 1024, where
+the JAX package runs (and counts) its Pippenger; "tree_chunked" for the
+tree over chunks above TREE_MSM_MAX_N, which the JAX package does not
+have. kernel="msm_batched": "tree" (one batched tree), "tree_chunked"
+(a tree per entry, entries above TREE_MSM_MAX_N) and "ladder"; the JAX
+package's "pippenger_vmap" has no counterpart.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..telemetry import metrics as _tm
 from .constants import LIMB_BITS, N_LIMBS, R
 from .curve import CurvePoints, g1, g2, scalar_bits
 from .field import inclusive_scan, resolve_device
@@ -40,6 +51,23 @@ TREE_MSM_MAX_N = 1 << 23
 
 # scalar bits the Pippenger windows cover (every supported r < 2^256)
 _SCALAR_BITS = 256
+
+# which implementation ran, counted at dispatch (the module docstring lists
+# the paths); pre-bound children: one dict lookup + add per call
+_ROUTE = _tm.registry().counter(
+    "kernel_route_total",
+    "Kernel-path routing decisions at dispatch/trace time, per kernel "
+    "and chosen implementation path",
+    ("kernel", "path"),
+)
+_R_TREE = _ROUTE.labels(kernel="msm", path="tree")
+_R_TREE_CHUNKED = _ROUTE.labels(kernel="msm", path="tree_chunked")
+_R_LADDER = _ROUTE.labels(kernel="msm", path="ladder")
+_R_PIPPENGER = _ROUTE.labels(kernel="msm", path="pippenger")
+_R_CHUNKED = _ROUTE.labels(kernel="msm", path="pippenger_chunked")
+_RB_TREE = _ROUTE.labels(kernel="msm_batched", path="tree")
+_RB_TREE_CHUNKED = _ROUTE.labels(kernel="msm_batched", path="tree_chunked")
+_RB_LADDER = _ROUTE.labels(kernel="msm_batched", path="ladder")
 
 
 def _limb_group_for(curve: CurvePoints):
@@ -151,13 +179,17 @@ def msm(curve: CurvePoints, points, scalars, window_bits: int | None = None,
     assert scalars.shape[-1] >= N_LIMBS and scalars.shape[0] == n
     if window_bits is None and chunk is None:
         if n >= TREE_MSM_MIN_N or n > LADDER_MSM_MAX_N:
+            (_R_TREE if n <= TREE_MSM_MAX_N else _R_TREE_CHUNKED).inc()
             return _msm_tree(curve, points, scalars)
+        _R_LADDER.inc()
         return _msm_ladder(curve, points, scalars)
     if window_bits is None:
         window_bits = 16 if n >= (1 << 14) else 8 if n >= 64 else 4
     assert LIMB_BITS % window_bits == 0, "window must divide the 16-bit limb"
     if chunk is None or chunk >= n:
+        _R_PIPPENGER.inc()
         return _msm_pippenger(curve, points, scalars, window_bits)
+    _R_CHUNKED.inc()
     acc = curve.infinity((), points.device)
     for s in range(0, n, chunk):
         part = _msm_pippenger(curve, points[s : s + chunk],
@@ -184,13 +216,16 @@ def msm_batched(curve: CurvePoints, bases, scalars_std, bases_of=None):
     B, n = scalars_std.shape[0], scalars_std.shape[1]
     if n >= TREE_MSM_MIN_N or n > LADDER_MSM_MAX_N:
         if n <= TREE_MSM_MAX_N:
+            _RB_TREE.inc()
             return msm_tree_batched(bases, scalars_std, bases_of,
                                     group=_limb_group_for(curve))
+        _RB_TREE_CHUNKED.inc()
         return torch.stack([
             _msm_tree(curve, bases[b if bases_of is None else bases_of[b]],
                       scalars_std[b])
             for b in range(B)
         ])
+    _RB_LADDER.inc()
     if bases_of is not None:
         bases = bases[bases_of]
     bits = scalar_bits(scalars_std)

@@ -6,7 +6,9 @@ A `Domain(size, offset)` evaluates polynomials at offset * w^i, w =
 g^((r-1)/size), g = 5. Vectors are (..., n, 16) int32 Montgomery limbs,
 canonical. Transforms of at least LIMB_NTT_MIN_N points take the
 limb-major four-step route of ops/ntt_limb.py (kernel 4 on a CUDA tensor);
-smaller ones the row-major `_ntt_core`.
+smaller ones the row-major `_ntt_core`. Each transform counts its route in
+kernel_route_total{kernel="ntt", path="limb" | "row"}, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -16,9 +18,20 @@ import functools
 import numpy as np
 import torch
 
+from ..telemetry import metrics as _tm
 from .constants import FR_GENERATOR, FR_TWO_ADICITY, N_LIMBS, R
 from .field import fr
 from .refmath import finv
+
+# same family ops/msm.py registers (idempotent): which NTT path ran
+_ROUTE = _tm.registry().counter(
+    "kernel_route_total",
+    "Kernel-path routing decisions at dispatch/trace time, per kernel "
+    "and chosen implementation path",
+    ("kernel", "path"),
+)
+_R_LIMB = _ROUTE.labels(kernel="ntt", path="limb")
+_R_ROW = _ROUTE.labels(kernel="ntt", path="row")
 
 # transforms this large or larger take the limb-major route (the JAX
 # package's TPU threshold; a test may lower it to reach the route cheaply)
@@ -119,7 +132,9 @@ class Domain:
         if off is not None:
             x = F.mul(x, off)
         if _limb_ntt_ok(self.size):
+            _R_LIMB.inc()
             return _limb_ntt_route(x, self.size, False)
+        _R_ROW.inc()
         return self._core(x, False)
 
     def ifft(self, evals):
@@ -127,8 +142,10 @@ class Domain:
         F = fr()
         x = _zpad(evals, self.size)
         if _limb_ntt_ok(self.size):
+            _R_LIMB.inc()
             x = _limb_ntt_route(x, self.size, True)
         else:
+            _R_ROW.inc()
             x = self._core(x, True)
         x = F.mul(x, torch.as_tensor(self._size_inv, device=x.device))
         off = self._off(True, x.device)

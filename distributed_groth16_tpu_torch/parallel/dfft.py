@@ -17,6 +17,9 @@ so transforms chain; rearrange=False produces consecutive chunking. The
 twiddles are the reference's: factor = w^(2^(i-1)*(k+1)) and the final
 rotate (dfft/mod.rs:142-182). Every gather index is in range by
 construction (torch raises where jnp.take would clamp).
+
+Each transform records a dfft.fft / dfft.ifft span (host time: stage 1's
+launches may still run on the card when the span closes).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from ..ops.field import fr
 from ..ops.ntt import bitrev_perm, domain
+from ..telemetry import tracing as _tracing
 from .net import Net
 from .pss import PackedSharingParams
 
@@ -131,27 +135,31 @@ async def _d_transform(share_vec, rearrange: bool, pad: int, degree2: bool,
     dev = share_vec.device
     wpows = domain(m)._live_wpows(dev)
     F = fr()
-    if inverse:
-        share_vec = F.mul(
-            share_vec, torch.as_tensor(dom._size_inv, device=dev)
-        )
-    local = _fft1_local(share_vec, wpows, logm, logl, inverse)
+    with _tracing.span(
+        "dfft.ifft" if inverse else "dfft.fft", party=net.party_id, sid=sid
+    ):
+        if inverse:
+            share_vec = F.mul(
+                share_vec, torch.as_tensor(dom._size_inv, device=dev)
+            )
+        local = _fft1_local(share_vec, wpows, logm, logl, inverse)
 
-    gathered = await net.gather_to_king(local, sid)
-    if king_clear:
-        # fused mode: leave the clear natural-order result on the king
-        # (the caller's next step is a king-side combine)
-        if not net.is_king:
-            return None
-        return _king_clear_array(
-            torch.stack(gathered, dim=0), pp, logm, degree2, inverse, wpows
-        )
-    out = None
-    if net.is_king:
-        out = _king_tail(
-            gathered, pp, logm, rearrange, pad, degree2, inverse, wpows
-        )
-    return await net.scatter_from_king(out, sid)
+        gathered = await net.gather_to_king(local, sid)
+        if king_clear:
+            # fused mode: leave the clear natural-order result on the king
+            # (the caller's next step is a king-side combine)
+            if not net.is_king:
+                return None
+            return _king_clear_array(
+                torch.stack(gathered, dim=0), pp, logm, degree2, inverse,
+                wpows,
+            )
+        out = None
+        if net.is_king:
+            out = _king_tail(
+                gathered, pp, logm, rearrange, pad, degree2, inverse, wpows
+            )
+        return await net.scatter_from_king(out, sid)
 
 
 async def d_fft(pcoeff_share, rearrange: bool, pad: int, degree2: bool, dom,

@@ -7,7 +7,7 @@ scalar) pairs — the tree MSM, kernels 1 and 3, on a CUDA tensor at
 c >= TREE_MSM_MIN_N — giving one group element whose sharing polynomial
 has degree 2(t+l). The king gathers the n points, unpacks them in the
 exponent (degree2), sums the l partial MSMs and hands the one result
-tensor back to every party.
+tensor back to every party. The call records a dmsm span.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from ..ops.curve import CurvePoints
 from ..ops.field import fr
 from ..ops.msm import msm
+from ..telemetry import tracing as _tracing
 from .net import Net
 from .pss import PackedSharingParams
 
@@ -33,12 +34,13 @@ async def d_msm(curve: CurvePoints, bases, scalar_shares,
     configuration (dmsm_bench.rs:42-50). A wide standard form (17-limb
     Fr381) passes to the local MSM as it is."""
     F = scalar_field or fr()
-    local = msm(curve, bases, F.from_mont(scalar_shares))
+    with _tracing.span("dmsm", party=net.party_id, sid=sid):
+        local = msm(curve, bases, F.from_mont(scalar_shares))
 
-    def king(points):
-        stacked = torch.stack(points, dim=0)  # (n, 3) + elem
-        partials = pp.unpackexp(curve, stacked, degree2=True)  # (l, 3) + elem
-        total = curve.sum(partials, axis=0)
-        return [total] * pp.n
+        def king(points):
+            stacked = torch.stack(points, dim=0)  # (n, 3) + elem
+            partials = pp.unpackexp(curve, stacked, degree2=True)
+            total = curve.sum(partials, axis=0)  # partials: (l, 3) + elem
+            return [total] * pp.n
 
-    return await net.king_compute(local, king, sid)
+        return await net.king_compute(local, king, sid)

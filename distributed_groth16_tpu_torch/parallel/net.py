@@ -29,14 +29,20 @@ to the net's NetConfig.op_timeout_s) and raises a structured MpcNetError —
 MpcTimeoutError / MpcDisconnectError carrying (party, peer, sid, op, job)
 — instead of hanging on a silent peer.
 
+Telemetry, as in the JAX package: every collective records a per-op
+latency sample (collective_seconds{op=}) and, when tracing is active, a
+net.* span; deadline expiries and round retries and failures increment
+counters; the round harness merges the parties' spans by pid at the
+round's end when the aggregation plane is on (DG16_AGG), and a round that
+exhausts its retries leaves a flight-recorder dump. The spans and
+histograms mark host time: a collective can return before the device work
+its tensors carry has finished (CUDA launches are asynchronous, and
+LocalSimNet hands tensors over by reference), so a net.* span reads the
+host's wait, not the card's.
+
 Backends: LocalSimNet (below), and ProdNet (prodnet.py), the star over
 TCP or mTLS sockets, one process per party, where every value crosses as
 a copy (utils/serde.py).
-
-Left out of this port so far: the JAX package's telemetry hooks
-(collective latency histograms, timeout and retry counters, net.* spans,
-the flight recorder and the trace aggregator); `flush_telemetry` is a
-no-op.
 """
 
 from __future__ import annotations
@@ -44,14 +50,49 @@ from __future__ import annotations
 import asyncio
 import contextvars
 import logging
+import time
 from contextlib import contextmanager
 from typing import Any, Awaitable, Callable, Protocol, Sequence
 
+from ..telemetry import aggregate as _agg
+from ..telemetry import flight as _flight
+from ..telemetry import metrics as _tm
+from ..telemetry import tracing as _tracing
 from ..utils.config import NetConfig
 
 log = logging.getLogger(__name__)
 
 CHANNELS = 3
+
+# -- telemetry ---------------------------------------------------------------
+# Per-op latency histograms and fault counters (the JAX package's names).
+# Children are pre-bound at import: the per-call cost on the collectives'
+# hot path is one dict lookup + an in-place add, no allocations.
+_REG = _tm.registry()
+_COLLECTIVE_SECONDS = _REG.histogram(
+    "collective_seconds",
+    "Latency of one star collective, per op",
+    ("op",),
+)
+_COLL = {
+    op: _COLLECTIVE_SECONDS.labels(op=op)
+    for op in (
+        "send_to", "recv_from", "gather_to_king", "scatter_from_king",
+        "king_compute",
+    )
+}
+_TIMEOUTS = _REG.counter(
+    "net_timeouts_total", "Collective deadline expiries, per op", ("op",)
+)
+_TO = {op: _TIMEOUTS.labels(op=op) for op in ("send_to", "recv_from")}
+_ROUND_RETRIES = _REG.counter(
+    "net_round_retries_total",
+    "MPC rounds re-run after a transient transport fault",
+)
+_ROUND_FAILURES = _REG.counter(
+    "net_round_failures_total",
+    "MPC rounds abandoned after exhausting retries",
+)
 
 # The job the current dynamic extent is proving for, so a transport
 # failure deep inside a collective names the job that died. Contextvars
@@ -178,40 +219,52 @@ class BaseNet:
         timeout: float | None = None,
     ) -> None:
         t = self._resolve_timeout(timeout)
+        t0 = time.perf_counter()
         try:
             if t is None:
                 await self._send_impl(to, value, sid)
             else:
                 await asyncio.wait_for(self._send_impl(to, value, sid), t)
         except (asyncio.TimeoutError, TimeoutError):
+            _TO["send_to"].inc()
             raise MpcTimeoutError(
                 f"send deadline ({t}s) exceeded",
                 party=self.party_id, peer=to, sid=sid, op="send_to",
             ) from None
+        finally:
+            _COLL["send_to"].observe(time.perf_counter() - t0)
 
     async def recv_from(
         self, frm: int, sid: int = 0, timeout: float | None = None
     ) -> Any:
         t = self._resolve_timeout(timeout)
+        t0 = time.perf_counter()
         try:
             if t is None:
                 return await self._recv_impl(frm, sid)
             return await asyncio.wait_for(self._recv_impl(frm, sid), t)
         except (asyncio.TimeoutError, TimeoutError):
+            _TO["recv_from"].inc()
             raise MpcTimeoutError(
                 f"recv deadline ({t}s) exceeded",
                 party=self.party_id, peer=frm, sid=sid, op="recv_from",
             ) from None
+        finally:
+            _COLL["recv_from"].observe(time.perf_counter() - t0)
 
     async def gather_to_king(
         self, value: Any, sid: int = 0, timeout: float | None = None
     ):
         """King returns [v_0, ..., v_{n-1}] (own value at index 0);
         clients send and return None."""
-        try:
-            return await self._gather_impl(value, sid, timeout)
-        except MpcNetError as e:
-            raise e.with_op("gather_to_king") from None
+        t0 = time.perf_counter()
+        with _tracing.span("net.gather_to_king", party=self.party_id, sid=sid):
+            try:
+                return await self._gather_impl(value, sid, timeout)
+            except MpcNetError as e:
+                raise e.with_op("gather_to_king") from None
+            finally:
+                _COLL["gather_to_king"].observe(time.perf_counter() - t0)
 
     async def _gather_impl(self, value, sid, timeout):
         if self.is_king:
@@ -246,10 +299,16 @@ class BaseNet:
                     f"scatter_from_king: {len(values)} values for "
                     f"{self.n_parties} parties"
                 )
-        try:
-            return await self._scatter_impl(values, sid, timeout)
-        except (MpcTimeoutError, MpcDisconnectError) as e:
-            raise e.with_op("scatter_from_king") from None
+        t0 = time.perf_counter()
+        with _tracing.span(
+            "net.scatter_from_king", party=self.party_id, sid=sid
+        ):
+            try:
+                return await self._scatter_impl(values, sid, timeout)
+            except (MpcTimeoutError, MpcDisconnectError) as e:
+                raise e.with_op("scatter_from_king") from None
+            finally:
+                _COLL["scatter_from_king"].observe(time.perf_counter() - t0)
 
     async def _scatter_impl(self, values, sid, timeout):
         if self.is_king:
@@ -279,9 +338,14 @@ class BaseNet:
         timeout: float | None = None,
     ):
         """gather -> f on king -> scatter (MpcNet::king_compute)."""
-        gathered = await self.gather_to_king(value, sid, timeout=timeout)
-        out = f(gathered) if gathered is not None else None
-        return await self.scatter_from_king(out, sid, timeout=timeout)
+        t0 = time.perf_counter()
+        with _tracing.span("net.king_compute", party=self.party_id, sid=sid):
+            try:
+                gathered = await self.gather_to_king(value, sid, timeout=timeout)
+                out = f(gathered) if gathered is not None else None
+                return await self.scatter_from_king(out, sid, timeout=timeout)
+            finally:
+                _COLL["king_compute"].observe(time.perf_counter() - t0)
 
     async def broadcast_from_king(
         self, value: Any, sid: int = 0, timeout: float | None = None
@@ -291,8 +355,11 @@ class BaseNet:
         return await self.scatter_from_king(vals, sid, timeout=timeout)
 
     async def flush_telemetry(self) -> None:
-        """Round-boundary telemetry flush: a no-op until the telemetry
-        port lands."""
+        """Round-boundary telemetry flush. The default is a no-op:
+        in-process backends share one span buffer, so the LocalSimNet
+        round harness merges by pid at the round's end
+        (`aggregate.merge_local`); ProdNet overrides this to ship a
+        TELEMETRY frame across the real transport."""
         return None
 
 
@@ -357,7 +424,13 @@ def simulate_network_round(
             )
             for i in range(n_parties)
         ]
-        return await asyncio.gather(*tasks)
+        out = await asyncio.gather(*tasks)
+        # the round boundary of the in-process star: every party's spans
+        # are in the shared aggregation buffer — merge them by pid and
+        # close the round (critical-path series) while they're complete
+        if _agg.enabled():
+            _agg.merge_local(finish=True)
+        return out
 
     return asyncio.run(_run())
 
@@ -386,7 +459,22 @@ def run_round_with_retries(
             )
         except (MpcTimeoutError, MpcDisconnectError) as e:
             if attempt == attempts - 1:
+                _ROUND_FAILURES.inc()
+                # retry exhaustion is a fault trigger: leave a post-mortem
+                # with the last rounds' spans and net events
+                _flight.dump(
+                    "round_retry_exhausted",
+                    extra={"attempts": attempts, "error": str(e)},
+                )
                 raise
+            _ROUND_RETRIES.inc()
+            _flight.note("round_retry", attempt=attempt, error=str(e))
+            # the failed attempt never reached its round-boundary merge:
+            # drop its spans so the next attempt's critical path does not
+            # span both attempts plus the gap (the flight recorder's ring
+            # keeps its own copy for the post-mortem)
+            if _agg.enabled():
+                _agg.drain()
             log.warning(
                 "round attempt %d/%d failed (%s); retrying",
                 attempt + 1, attempts, e,

@@ -37,12 +37,22 @@ close reads as a reset (ConnectionResetError), so it is relayed as in the
 JAX package.
 
 The frames are byte for byte the JAX package's, so JAX and port parties
-can share one star. The HEARTBEAT payload keeps its clock-echo layout,
-serde (t_send_ns, echo_t0_ns, echo_rx_ns): each heartbeat echoes the
-peer's last one. The JAX package's telemetry plane is left out: no wire
-counters, no ClockSync offsets from the echoes, no TELEMETRY frames sent,
-no flight recorder; a received TELEMETRY frame is dropped, as the JAX
-package drops it when aggregation is off.
+can share one star.
+
+Telemetry plane, as in the JAX package:
+  * wire counters per peer and logical channel (bytes and frames each
+    way, heartbeats, redials, ERR frames, peer deaths, idle seconds);
+  * HEARTBEAT payloads carry an NTP-style clock echo — serde (t_send_ns,
+    echo_t0_ns, echo_rx_ns) — feeding a per-peer ClockSync so the king
+    can rebase client span timestamps into its own clock;
+  * TELEMETRY frames (type 5, DG16_AGG-gated) ship each client's
+    compacted span buffer and metric snapshot to the king at round
+    boundaries and on shutdown; the king holds a frame until the peer's
+    clock has a sample, then merges it into the process TraceAggregator
+    with the offset applied;
+  * fault events (peer death, ERR frames, redials) feed the flight
+    recorder's ring; a peer death triggers a post-mortem dump
+    (DG16_FLIGHT_DIR).
 
 Values cross as utils/serde.py wire values. A torch tensor is sent as
 its host numpy array (the port's limbs are int32, wire dtype code 1; the
@@ -54,17 +64,20 @@ any other dtype raises TypeError.
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import random
 import ssl
 import struct
-import time
 from typing import Any
 
 import numpy as np
 import torch
 
 from ..ops.field import resolve_device
+from ..telemetry import aggregate as _agg
+from ..telemetry import flight as _flight
+from ..telemetry import metrics as _tm
 from ..utils import serde
 from ..utils.config import NetConfig
 from .net import (
@@ -77,7 +90,63 @@ from .net import (
 
 log = logging.getLogger(__name__)
 
+# -- network accounting ------------------------------------------------------
+# Wire-level counters (the JAX package's names): bytes/frames per peer and
+# logical channel, heartbeat liveness, and fault events. Per-(peer, sid)
+# children are pre-bound at _finish_setup so the frame path pays one dict
+# lookup per send/recv; cold paths (dial retries, deaths) bind inline.
+_REG = _tm.registry()
+_BYTES_TX = _REG.counter(
+    "net_bytes_sent_total", "Frame bytes written, per peer and channel",
+    ("peer", "sid"),
+)
+_BYTES_RX = _REG.counter(
+    "net_bytes_recv_total", "Frame bytes read, per peer and channel",
+    ("peer", "sid"),
+)
+_FRAMES_TX = _REG.counter(
+    "net_frames_sent_total", "Frames written, per peer and channel",
+    ("peer", "sid"),
+)
+_FRAMES_RX = _REG.counter(
+    "net_frames_recv_total", "Frames read, per peer and channel",
+    ("peer", "sid"),
+)
+_HB_SENT = _REG.counter(
+    "net_heartbeats_sent_total", "HEARTBEAT frames written, per peer",
+    ("peer",),
+)
+_PEER_IDLE = _REG.gauge(
+    "net_peer_idle_seconds",
+    "Seconds since the last frame from peer (sampled each heartbeat tick)",
+    ("peer",),
+)
+_RECONNECTS = _REG.counter(
+    "net_reconnects_total", "Client re-dials of the king, per party",
+    ("party",),
+)
+_ERR_FRAMES = _REG.counter(
+    "net_err_frames_total", "ERR death-notice frames received, per peer",
+    ("peer",),
+)
+_PEER_DEATHS = _REG.counter(
+    "net_peer_deaths_total", "Peers declared dead, per peer", ("peer",)
+)
+_TLM_TX = _REG.counter(
+    "telemetry_frames_sent_total",
+    "TELEMETRY frames (compacted spans + metrics) written, per peer",
+    ("peer",),
+)
+_TLM_RX = _REG.counter(
+    "telemetry_frames_recv_total",
+    "TELEMETRY frames received and merged, per peer",
+    ("peer",),
+)
+
 SYN, SYNACK, DATA, HEARTBEAT, ERR, TELEMETRY = 0, 1, 2, 3, 4, 5
+
+# frame overhead: u32 length prefix + (packet_type, sid) envelope
+_FRAME_OVERHEAD = 6
 
 # Frame-length ceiling: a hostile or corrupt peer must not be able to
 # demand a 4 GB allocation with one u32 header (the reference bounds frames
@@ -197,9 +266,26 @@ class ProdNet(BaseNet):
         self._death_reason: dict[int, str] = {}
         self._last_seen: dict[int, float] = {}
         self._closed = False
-        # the last heartbeat received from each peer (their_send_ns,
-        # our_rx_ns), echoed back on our next heartbeat
+        # clock alignment: per-peer NTP-style estimators fed by heartbeat
+        # echoes, and the last heartbeat received from each peer
+        # (their_send_ns, our_rx_ns) — echoed back on our next heartbeat
+        # to close the loop
+        self._clocks: dict[int, _agg.ClockSync] = {}
         self._hb_rx: dict[int, tuple[int, int]] = {}
+        # TELEMETRY frames held until the peer's clock offset has at
+        # least one sample (bounded per peer) — merging with offset 0
+        # would put another process's perf_counter epoch on our timeline
+        self._pending_tlm: dict[int, list[dict]] = {}
+        # king-side round close: parties (self included) that contributed
+        # telemetry since the last finish_round — when every live party
+        # has, the round's critical path is computed and recorded
+        self._tlm_since_close: set[int] = set()
+        # pre-bound per-(peer, sid) accounting children (populated in
+        # _finish_setup): (bytes, frames) counter pairs per direction
+        self._acct_tx: dict[tuple[int, int], tuple] = {}
+        self._acct_rx: dict[tuple[int, int], tuple] = {}
+        self._acct_hb: dict[int, Any] = {}
+        self._acct_idle: dict[int, Any] = {}
 
     # -- bring-up ------------------------------------------------------------
 
@@ -319,6 +405,9 @@ class ProdNet(BaseNet):
                 if io is not None:
                     await io.close()
                 attempt += 1
+                _RECONNECTS.labels(party=str(party_id)).inc()
+                _flight.note("redial", party=party_id, attempt=attempt,
+                             error=str(e))
                 now = loop.time()
                 if now >= deadline:
                     raise MpcTimeoutError(
@@ -361,8 +450,21 @@ class ProdNet(BaseNet):
     async def _finish_setup(self) -> None:
         loop = asyncio.get_running_loop()
         for peer, io in self._ios.items():
+            p = str(peer)
+            self._acct_hb[peer] = _HB_SENT.labels(peer=p)
+            self._acct_idle[peer] = _PEER_IDLE.labels(peer=p)
+            self._clocks[peer] = _agg.ClockSync(label=p)
             for sid in range(CHANNELS):
                 self._queues[(peer, sid)] = asyncio.Queue()
+                s = str(sid)
+                self._acct_tx[(peer, sid)] = (
+                    _BYTES_TX.labels(peer=p, sid=s),
+                    _FRAMES_TX.labels(peer=p, sid=s),
+                )
+                self._acct_rx[(peer, sid)] = (
+                    _BYTES_RX.labels(peer=p, sid=s),
+                    _FRAMES_RX.labels(peer=p, sid=s),
+                )
             self._last_seen[peer] = loop.time()
             self._pumps.append(asyncio.create_task(self._pump(peer, io)))
             if self.net_cfg.heartbeat_interval_s > 0:
@@ -377,6 +479,21 @@ class ProdNet(BaseNet):
             await self.close()
             raise
 
+    def _account_tx(self, peer: int, sid: int, payload_len: int) -> None:
+        """Count one written frame — every write path must call this so
+        tx and rx accounting reconcile frame-for-frame on a healthy link
+        (the pump counts the receive side)."""
+        acct = self._acct_tx.get((peer, sid))
+        if acct is not None:
+            acct[0].inc(payload_len + _FRAME_OVERHEAD)
+            acct[1].inc()
+
+    def _now_ns(self) -> int:
+        """The telemetry clock (perf_counter_ns — the span clock). A
+        method so tests can subclass in a skewed clock and watch the
+        estimator converge."""
+        return _agg.now_ns()
+
     def _fail_peer(self, peer: int, reason: str, relay: bool = True) -> None:
         """Declare a peer dead: poison every (peer, sid) queue so pending
         AND future recvs raise with the reason, and — king only — relay
@@ -386,8 +503,19 @@ class ProdNet(BaseNet):
             return
         self._dead.add(peer)
         self._death_reason[peer] = reason
+        _PEER_DEATHS.labels(peer=str(peer)).inc()
         log.warning("party %d: stream to peer %d died: %s",
                     self.party_id, peer, reason)
+        # the fault machinery firing is the flight recorder's trigger:
+        # queue poisoning below is exactly the moment the post-mortem ring
+        # still holds the lead-up
+        _flight.note(
+            "peer_death", party=self.party_id, peer=peer, reason=reason
+        )
+        _flight.dump_soon(
+            "peer_death", party=self.party_id,
+            extra={"peer": peer, "reason": reason},
+        )
         for sid in range(CHANNELS):
             self._queues[(peer, sid)].put_nowait((None, reason))
         if relay and self.is_king:
@@ -396,12 +524,14 @@ class ProdNet(BaseNet):
                 if other != peer and other not in self._dead:
                     # tracked so close() can cancel an unflushed relay
                     self._pumps.append(
-                        asyncio.create_task(self._send_err(io, msg))
+                        asyncio.create_task(self._send_err(other, io, msg))
                     )
 
-    async def _send_err(self, io, reason: str) -> None:
+    async def _send_err(self, peer: int, io, reason: str) -> None:
         try:
-            await _send_frame(io, ERR, 0, serde.dumps(reason))
+            payload = serde.dumps(reason)
+            await _send_frame(io, ERR, 0, payload)
+            self._account_tx(peer, 0, len(payload))
         except Exception:  # noqa: BLE001 — best-effort death notice
             pass
 
@@ -415,12 +545,19 @@ class ProdNet(BaseNet):
             while True:
                 ptype, sid, payload = await _recv_frame(io)
                 self._last_seen[peer] = loop.time()
+                acct = self._acct_rx.get((peer, sid))
+                if acct is not None:
+                    acct[0].inc(len(payload) + _FRAME_OVERHEAD)
+                    acct[1].inc()
                 if ptype == HEARTBEAT:
                     self._on_heartbeat(peer, payload)
                     continue
                 if ptype == TELEMETRY:
-                    continue  # no telemetry plane here: dropped
+                    self._on_telemetry(peer, payload)
+                    continue
                 if ptype == ERR:
+                    _ERR_FRAMES.labels(peer=str(peer)).inc()
+                    _flight.note("err_frame", party=self.party_id, peer=peer)
                     try:
                         reason = serde.loads(payload)
                     except Exception:  # noqa: BLE001 — reason is best-effort
@@ -441,16 +578,127 @@ class ProdNet(BaseNet):
             self._fail_peer(peer, f"{type(e).__name__}: {e}")
 
     def _on_heartbeat(self, peer: int, payload: bytes) -> None:
-        """Keep (their_send_ns, our_rx_ns) of the peer's heartbeat for our
-        next one to echo. Empty or malformed payloads are ignored: the
-        liveness role of the frame never depends on the echo."""
+        """Clock-echo half of the heartbeat: the payload is (t_send_ns,
+        echo_t0_ns, echo_rx_ns) in the sender's / our clock. Recording
+        (their_send, our_rx) arms OUR next heartbeat to echo; a completed
+        echo yields one (offset, rtt) sample. Empty or malformed payloads
+        are ignored: the liveness role of the frame never depends on the
+        echo."""
         if not payload:
             return
         try:
-            t_send = serde.loads(payload)[0]
-            self._hb_rx[peer] = (int(t_send), time.perf_counter_ns())
+            t_send, echo_t0, echo_rx = serde.loads(payload)
+            now = self._now_ns()
+            self._hb_rx[peer] = (int(t_send), now)
+            if echo_t0 and echo_rx:
+                off, rtt = _agg.ClockSync.from_echo(
+                    int(echo_t0), int(echo_rx), int(t_send), now
+                )
+                self._clocks[peer].add_sample(off, rtt)
+                # a clock estimate exists now: merge any TELEMETRY frames
+                # that arrived before it did
+                for body in self._pending_tlm.pop(peer, ()):
+                    self._merge_telemetry(peer, body)
         except Exception:  # noqa: BLE001 — the echo is best-effort
             pass
+
+    def _on_telemetry(self, peer: int, payload: bytes) -> None:
+        """Merge one TELEMETRY frame: the peer's compacted span events are
+        rebased into OUR clock (−ClockSync.offset_ns) and handed to the
+        process aggregator, with its metric snapshot alongside. Frames
+        arriving with aggregation off are counted and dropped."""
+        _TLM_RX.labels(peer=str(peer)).inc()
+        if not _agg.enabled():
+            return
+        try:
+            body = json.loads(serde.loads(payload))
+        except Exception as e:  # noqa: BLE001 — telemetry must not kill the pump
+            log.warning("party %d: unreadable TELEMETRY frame from %d: %s",
+                        self.party_id, peer, e)
+            return
+        # No clock sample yet means timestamps are on another process's
+        # perf_counter epoch — hold the frame until the heartbeat echo
+        # delivers an offset (bounded; with heartbeats disabled there
+        # will never be one, so merge unaligned — the in-process tests'
+        # shared-clock case, where offset 0 is in fact correct).
+        if (
+            self.net_cfg.heartbeat_interval_s > 0
+            and self._clocks[peer].n_samples == 0
+        ):
+            held = self._pending_tlm.setdefault(peer, [])
+            held.append(body)
+            del held[:-8]  # cap per peer; oldest frames drop first
+            return
+        self._merge_telemetry(peer, body)
+
+    def _merge_telemetry(self, peer: int, body: dict) -> None:
+        try:
+            _agg.aggregator().add_party(
+                peer,
+                body.get("spans", []),
+                offset_ns=-self._clocks[peer].offset_ns,
+                metrics=body.get("metrics"),
+            )
+        except Exception as e:  # noqa: BLE001
+            log.warning("party %d: failed to merge TELEMETRY from %d: %s",
+                        self.party_id, peer, e)
+            return
+        self._note_tlm_contribution(peer)
+
+    def _note_tlm_contribution(self, party: int) -> None:
+        """King-side round close over the real transport: once every
+        live party (dead peers excluded — a killed star must still close
+        its last round) has flushed since the previous close, compute
+        and record the round's critical path. The in-process backend
+        closes rounds in simulate_network_round instead."""
+        if not self.is_king:
+            return
+        self._tlm_since_close.add(party)
+        live = {p for p in self._ios if p not in self._dead} | {0}
+        if live <= self._tlm_since_close:
+            _agg.aggregator().finish_round()
+            self._tlm_since_close.clear()
+
+    async def flush_telemetry(self) -> None:
+        """Round-boundary (and shutdown) telemetry flush. Clients compact
+        their aggregation buffer + a metric snapshot into one TELEMETRY
+        frame to the king; the king folds its own buffer straight into
+        the aggregator (client frames merge as they arrive in the pump).
+        A no-op — no frame, no drain — when DG16_AGG is off."""
+        if not _agg.enabled() or self._closed:
+            return
+        if self.is_king:
+            agg = _agg.aggregator()
+            for party, group in _agg.group_by_pid(_agg.drain()).items():
+                agg.add_party(party, group)
+            self._note_tlm_contribution(0)
+            return
+        # deliberately NOT gated on `0 in self._dead`: a relayed death of
+        # ANOTHER party fails the star fast and marks the king dead here,
+        # but this client's socket to the king is usually still healthy —
+        # and a post-fault flush is exactly the post-mortem telemetry the
+        # flight recorder wants. A genuinely dead socket just fails the
+        # best-effort write below.
+        io = self._ios.get(0)
+        if io is None:
+            return  # nothing drained: the spans keep for the next flush
+        events = _agg.drain()
+        payload = serde.dumps(json.dumps({
+            "party": self.party_id,
+            "spans": events,
+            "metrics": _tm.registry().snapshot(),
+        }))
+        try:
+            await _send_frame(io, TELEMETRY, 0, payload)
+            self._account_tx(0, 0, len(payload))
+            _TLM_TX.labels(peer="0").inc()
+        except Exception as e:  # noqa: BLE001 — telemetry is best-effort
+            # the send failed but the spans need not die with it: put
+            # them back so the shutdown flush (or the next round's) can
+            # retry on whatever transport is left
+            _agg.requeue(events)
+            log.debug("party %d: telemetry flush failed: %s",
+                      self.party_id, e)
 
     async def _heartbeat(self, peer: int, io) -> None:
         """Keepalive and liveness: send a HEARTBEAT every interval; declare
@@ -463,6 +711,7 @@ class ProdNet(BaseNet):
             if self._closed or peer in self._dead:
                 return
             idle = loop.time() - self._last_seen[peer]
+            self._acct_idle[peer].set(idle)
             if cfg.idle_timeout_s > 0 and idle > cfg.idle_timeout_s:
                 # our own loop may just have resumed from a long
                 # synchronous compute phase with the peer's frames still
@@ -479,13 +728,17 @@ class ProdNet(BaseNet):
                 )
                 return
             try:
+                # piggyback the NTP-style clock echo: our send time plus
+                # the echo of the peer's last heartbeat (_on_heartbeat)
                 last = self._hb_rx.get(peer)
                 payload = serde.dumps((
-                    time.perf_counter_ns(),
+                    self._now_ns(),
                     last[0] if last else 0,
                     last[1] if last else 0,
                 ))
                 await _send_frame(io, HEARTBEAT, 0, payload)
+                self._acct_hb[peer].inc()
+                self._account_tx(peer, 0, len(payload))
             except Exception as e:  # noqa: BLE001 — write failure = death
                 self._fail_peer(peer, f"heartbeat write failed: {e}")
                 return
@@ -505,8 +758,9 @@ class ProdNet(BaseNet):
 
     async def _synchronize_inner(self) -> None:
         if self.is_king:
-            for io in self._ios.values():
+            for peer, io in self._ios.items():
                 await _send_frame(io, SYN, 0, b"")
+                self._account_tx(peer, 0, 0)
             for peer in self._ios:
                 ptype, detail = await self._queues[(peer, 0)].get()
                 if ptype != SYNACK:
@@ -522,6 +776,7 @@ class ProdNet(BaseNet):
                     party=self.party_id, peer=0, op="synchronize",
                 )
             await _send_frame(self._ios[0], SYNACK, 0, b"")
+            self._account_tx(0, 0, 0)
 
     # -- MpcNet surface ------------------------------------------------------
 
@@ -538,7 +793,9 @@ class ProdNet(BaseNet):
                 party=self.party_id, peer=to, sid=sid,
             )
         try:
-            await _send_frame(io, DATA, sid, serde.dumps(_to_wire(value)))
+            payload = serde.dumps(_to_wire(value))
+            await _send_frame(io, DATA, sid, payload)
+            self._account_tx(to, sid, len(payload))
         except (ConnectionError, OSError) as e:
             self._fail_peer(to, f"send failed: {type(e).__name__}: {e}")
             raise MpcDisconnectError(
@@ -577,13 +834,26 @@ class ProdNet(BaseNet):
         for peer, io in self._ios.items():
             if peer not in self._dead:
                 await self._send_err(
-                    io, f"party {self.party_id} aborted: {reason}"
+                    peer, io, f"party {self.party_id} aborted: {reason}"
                 )
         await self.close()
 
     async def close(self) -> None:
         if self._closed:
             return
+        # ship whatever spans the aggregation buffer still holds before
+        # the sockets go away ("at round boundaries AND on shutdown")
+        if _agg.enabled():
+            try:
+                await self.flush_telemetry()
+            except Exception:  # noqa: BLE001 — closing must never fail
+                pass
+            # frames still held for a clock sample that never came:
+            # merging unaligned beats losing the round's spans outright
+            for peer, bodies in list(self._pending_tlm.items()):
+                for body in bodies:
+                    self._merge_telemetry(peer, body)
+            self._pending_tlm.clear()
         self._closed = True
         for t in self._pumps + self._heartbeats:
             t.cancel()

@@ -14,9 +14,12 @@ package's utils/benchtools.py.
 
 from __future__ import annotations
 
+import logging
 import time
 
 import torch
+
+log = logging.getLogger(__name__)
 
 
 def _fence() -> None:
@@ -83,9 +86,10 @@ def device_ms(fn, reps: int, keep, tries: int = 6) -> float:
         d = sorted(b - a for a, b, name in device_spans(prof) if keep(name))
         if d and d[len(d) // 2] * 1e-3 <= 1.5 * event:
             return d[len(d) // 2] * 1e-3
-        print(f"device_ms: a trace held {len(d)} kernel records of {calls} "
-              f"launches, median {d[len(d) // 2] * 1e-3 if d else None} ms, "
-              f"event time {event} ms a call; tracing again", flush=True)
+        log.warning("device_ms: a trace held %d kernel records of %d "
+                    "launches, median %s ms, event time %s ms a call; "
+                    "tracing again", len(d), calls,
+                    d[len(d) // 2] * 1e-3 if d else None, event)
     raise AssertionError(f"torch.profiler gave no usable trace in {tries} "
                          "traces")
 

@@ -106,6 +106,9 @@ KNOBS: dict[str, str] = {
     # frontend / store
     "DG16_NO_CWASM": "force the pure-Python WASM witness VM",
     "DG16_STORE": "circuit store root directory",
+    # examples
+    "DG16_VECTORS": "introspect.py: external test-vector directory",
+    "DG16_REQUIRE_VECTORS": "introspect.py: fail when vectors missing",
 }
 
 

@@ -27,9 +27,8 @@ exact: a failing fold bisects down to single-proof `verify()` leaves
 sum_j x_ij * gamma_abc[j+1] — is lifted off the host onto the device as
 one batched MSM over a cached `PreparedVerifyingKey` (the CRS-cache
 mold) on its device (None: CUDA); the fold and the pairings stay on the
-host, as in the JAX package. The JAX package's verification metrics
-(verify_batch_size, verify_pairings_saved_total) come with the port's
-telemetry plane.
+host, as in the JAX package. verify_batch observes the JAX package's
+verification metrics: verify_batch_size and verify_pairings_saved_total.
 """
 
 from __future__ import annotations
@@ -57,6 +56,20 @@ from ..ops.curve import g1
 from ..ops.field import resolve_device
 from ..ops.msm import encode_scalars_std, msm_batched
 from ..ops.pairing import pairing_check
+from ..telemetry import metrics as _tm
+
+# Verification-plane metrics (the JAX package's names and buckets).
+_REG = _tm.registry()
+_BATCH_SIZE = _REG.histogram(
+    "verify_batch_size",
+    "Proofs folded per RLC batch-verification multi-pairing",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128),
+)
+_PAIRINGS_SAVED = _REG.counter(
+    "verify_pairings_saved_total",
+    "Miller loops avoided by RLC batch verification: 4N per-proof loops "
+    "minus the N+3 folded ones, accumulated per fold",
+)
 
 
 # -- prepared verifying keys -------------------------------------------------
@@ -243,10 +256,14 @@ def verify_batch(
     if n == 0:
         return True
     if n == 1:
+        _BATCH_SIZE.observe(1)
         return verify(pvk.vk, proofs[0], [int(x) for x in publics_list[0]])
     l_pubs = prepare_inputs_batched(pvk, publics_list)
     rs = fold_scalars(seed if seed is not None else fresh_seed(), n)
-    return pairing_check(folded_pairs(pvk.vk, proofs, l_pubs, rs))
+    ok = pairing_check(folded_pairs(pvk.vk, proofs, l_pubs, rs))
+    _BATCH_SIZE.observe(n)
+    _PAIRINGS_SAVED.inc(4 * n - (n + 3))
+    return ok
 
 
 def verify_each(

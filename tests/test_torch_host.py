@@ -129,6 +129,21 @@ PORT_MODULES = [
     "distributed_groth16_tpu_torch.fleet.federate",
     "distributed_groth16_tpu_torch.fleet.router",
     "distributed_groth16_tpu_torch.fleet.__main__",
+    "distributed_groth16_tpu_torch.analysis",
+    "distributed_groth16_tpu_torch.analysis.core",
+    "distributed_groth16_tpu_torch.analysis.cli",
+    "distributed_groth16_tpu_torch.analysis.baseline",
+    "distributed_groth16_tpu_torch.analysis.report",
+    "distributed_groth16_tpu_torch.analysis.rules",
+    "distributed_groth16_tpu_torch.analysis.rules.dg101_async_blocking",
+    "distributed_groth16_tpu_torch.analysis.rules.dg102_secret_taint",
+    "distributed_groth16_tpu_torch.analysis.rules.dg103_env_knobs",
+    "distributed_groth16_tpu_torch.analysis.rules.dg104_metric_catalog",
+    "distributed_groth16_tpu_torch.analysis.rules.dg105_lock_discipline",
+    "distributed_groth16_tpu_torch.analysis.rules.dg106_tracer_hygiene",
+    "distributed_groth16_tpu_torch.analysis.rules.dg107_collective_pairing",
+    "distributed_groth16_tpu_torch.analysis.rules.dg108_print_discipline",
+    "distributed_groth16_tpu_torch.tools.dg16lint",
 ]
 COPIES = ["constants", "refmath", "primemath", "glv", "pairing"]
 FRONTEND_COPIES = ["r1cs", "sha256", "wasm_vm", "witness_calculator",
@@ -202,6 +217,8 @@ def test_importing_the_port_loads_no_jax():
     assert "distributed_groth16_tpu_torch.api.cli" in out
     assert "distributed_groth16_tpu_torch.fleet.router" in out
     assert "distributed_groth16_tpu_torch.telemetry.profiler" in out
+    assert "distributed_groth16_tpu_torch.analysis.rules.dg104_metric_catalog" \
+        in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -288,7 +305,8 @@ PORT_KNOB_PREFIXES = ("DG16_NET_", "DG16_SERVICE_", "DG16_JOURNAL",
                       "DG16_TENANT_", "DG16_PERF_", "DG16_PEAK_")
 PORT_KNOBS = ("DG16_TRACE", "DG16_NO_CWASM", "DG16_METRICS", "DG16_TRACE_OUT",
               "DG16_AGG", "DG16_FLIGHT_DIR", "DG16_STORE", "DG16_PROF_DIR",
-              "DG16_PROF_MAX_S", "DG16_DEVMEM_SAMPLE_S")
+              "DG16_PROF_MAX_S", "DG16_DEVMEM_SAMPLE_S", "DG16_VECTORS",
+              "DG16_REQUIRE_VECTORS")
 # the port's own text where the JAX text names XLA, or flops where the
 # port's roofline counts 32-bit multiply-adds
 PORT_KNOB_TEXT = {
@@ -697,6 +715,86 @@ def test_serving_plane_copy_differs_only_in_its_listed_edits(rel):
         ref = ref[:i] + ref[ref.index(end, i):]
     for jax_text, port_text in edits:
         assert jax_text in ref, jax_text
+        ref = ref.replace(jax_text, port_text)
+    assert (PORT / rel).read_text() == ref
+
+
+# the port's dg16lint: the JAX package's analysis/ pointed at the port
+# (its default target, its config module, its metric catalog, its
+# baseline and their spelling in the help texts), the DG106 docstring's
+# note that the port jits nothing, and DG107's docstring where it names an
+# earlier PR of the JAX package; every other module is the same bytes
+ANALYSIS_EDITS = {
+    "analysis/__init__.py": [
+        ('"""dg16lint — project-native static analysis for distributed_groth16_tpu.\n',
+         '"""dg16lint — project-native static analysis for distributed_groth16_tpu,\nrun over the PyTorch port (distributed_groth16_tpu_torch): the JAX\npackage\'s analysis/, its rules DG101-DG108 unchanged, pointed at the\nport\'s package, its utils/config.py, its metric catalog\n(docs/torch/OBSERVABILITY.md) and its baseline.\n'),
+        ('Run it with ``python -m distributed_groth16_tpu.analysis`` or\n``tools/dg16lint`` (the latter needs no third-party deps — the whole\npackage is stdlib-only and self-contained; nothing here may import jax or\nany sibling package). Findings are suppressed inline with\n',
+         'Run it with ``python -m distributed_groth16_tpu_torch.analysis`` or\n``python distributed_groth16_tpu_torch/tools/dg16lint.py`` (the latter\nneeds no third-party deps — the whole package is stdlib-only and\nself-contained; nothing here may import jax, torch or any sibling\npackage). Findings are suppressed inline with\n'),
+        ('checked-in baseline (``tools/dg16lint-baseline.json``). See\n',
+         'checked-in baseline\n(``distributed_groth16_tpu_torch/tools/dg16lint-baseline.json``). See\n'),
+    ],
+    "analysis/__main__.py": [
+        ('"""``python -m distributed_groth16_tpu.analysis`` entry point."""\n',
+         '"""``python -m distributed_groth16_tpu_torch.analysis`` entry point."""\n'),
+    ],
+    "analysis/baseline.py": [
+        ('DEFAULT_BASELINE = "tools/dg16lint-baseline.json"\n',
+         'DEFAULT_BASELINE = "distributed_groth16_tpu_torch/tools/dg16lint-baseline.json"\n'),
+        ('    # non-module paths (DG104 rows in docs/OBSERVABILITY.md) have no line\n',
+         '    # non-module paths (DG104 rows in docs/torch/OBSERVABILITY.md) have no line\n'),
+        ('            "`python -m distributed_groth16_tpu.analysis --write-baseline`"\n',
+         '            "`python -m distributed_groth16_tpu_torch.analysis "\n            "--write-baseline`"\n'),
+    ],
+    "analysis/cli.py": [
+        ('    python -m distributed_groth16_tpu.analysis [paths...] [options]\n    tools/dg16lint [paths...] [options]          # no-deps spelling\n',
+         '    python -m distributed_groth16_tpu_torch.analysis [paths...] [options]\n    python distributed_groth16_tpu_torch/tools/dg16lint.py [paths...]\n        [options]                                # no-deps spelling\n'),
+        ('            "Project-native static analysis for distributed_groth16_tpu "\n',
+         '            "Project-native static analysis for "\n            "distributed_groth16_tpu_torch "\n'),
+        ('        help="files/dirs to lint (default: the distributed_groth16_tpu "\n',
+         '        help="files/dirs to lint (default: the "\n        "distributed_groth16_tpu_torch "\n'),
+        ('        default = Path("distributed_groth16_tpu")\n',
+         '        default = Path("distributed_groth16_tpu_torch")\n'),
+        ('            # itself lives in (what tools/dg16lint relies on)\n',
+         '            # itself lives in (what tools/dg16lint.py relies on)\n'),
+    ],
+    "analysis/core.py": [
+        ("bare interpreter — CI's lint lane and ``tools/dg16lint`` load it without\njax installed — so nothing in ``analysis/`` may import the rest of the\n",
+         'bare interpreter — ``tools/dg16lint.py`` loads it without torch\ninstalled — so nothing in ``analysis/`` may import the rest of the\n'),
+    ],
+    "analysis/rules/dg103_env_knobs.py": [
+        ('    "distributed_groth16_tpu/utils/config.py",\n',
+         '    "distributed_groth16_tpu_torch/utils/config.py",\n'),
+    ],
+    "analysis/rules/dg104_metric_catalog.py": [
+        ('docs/OBSERVABILITY.md is the contract dashboards and alerts are built\n',
+         "docs/torch/OBSERVABILITY.md, the port's copy of the JAX package's\ndocs/OBSERVABILITY.md catalog, is the contract dashboards and alerts are built\n"),
+        ('_CATALOG_DOC = "docs/OBSERVABILITY.md"\n',
+         '_CATALOG_DOC = "docs/torch/OBSERVABILITY.md"\n'),
+        ('    "docs/OBSERVABILITY.md catalog — name, type, and label set, in both "\n    "directions.",\n',
+         '    "docs/torch/OBSERVABILITY.md catalog — name, type, and label set, in "\n    "both directions.",\n'),
+    ],
+    "analysis/rules/dg107_collective_pairing.py": [
+        ("the bug class PR 1's chaos suite",
+         "the bug class the transport's chaos suite"),
+    ],
+    "analysis/rules/dg106_tracer_hygiene.py": [
+        ('``shard_map(f, ...)``).\n',
+         '``shard_map(f, ...)``).\n\nThe PyTorch port jits nothing, so over its package the rule finds no\njitted function and reports nothing; it stays so that a jit wrapper\nadded later is held to the same hygiene.\n'),
+    ],
+}
+
+
+ANALYSIS_FILES = sorted(
+    str(p.relative_to(ROOT / "distributed_groth16_tpu"))
+    for p in (ROOT / "distributed_groth16_tpu" / "analysis").rglob("*.py")
+)
+
+
+@pytest.mark.parametrize("rel", ANALYSIS_FILES)
+def test_analysis_copy_differs_only_in_its_listed_edits(rel):
+    ref = (ROOT / "distributed_groth16_tpu" / rel).read_text()
+    for jax_text, port_text in ANALYSIS_EDITS.get(rel, []):
+        assert ref.count(jax_text) == 1, jax_text
         ref = ref.replace(jax_text, port_text)
     assert (PORT / rel).read_text() == ref
 

@@ -12,6 +12,7 @@ ladder_apply (kernels 1 and 2), every party's local MSM the tree MSM
 (kernels 1 and 3). Field shares are compared limb for limb, CRS shares as
 affine points, proofs as host integers (tolerance zero throughout)."""
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -27,6 +28,7 @@ from distributed_groth16_tpu.ops.curve import g1 as jg1, g2 as jg2
 from distributed_groth16_tpu.ops.field import fr as jfr
 from distributed_groth16_tpu.parallel import net as jnet
 from distributed_groth16_tpu.parallel.pss import PackedSharingParams
+from distributed_groth16_tpu.telemetry import aggregate as jaggregate
 from distributed_groth16_tpu_torch.models import groth16 as port
 from distributed_groth16_tpu_torch.models.groth16 import prove as tprove
 from distributed_groth16_tpu_torch.ops import limb_kernels
@@ -35,6 +37,7 @@ from distributed_groth16_tpu_torch.ops.curve import g1, g2
 from distributed_groth16_tpu_torch.ops.field import fr
 from distributed_groth16_tpu_torch.parallel import net as tnet
 from distributed_groth16_tpu_torch.parallel.pss import pss
+from distributed_groth16_tpu_torch.telemetry import aggregate
 
 torch.set_num_threads(1)
 
@@ -67,6 +70,23 @@ def _round(sim, prove, pp, crs, qs, a, ax, **kw):
     return sim(pp.n, party, [(crs[i], qs[i], a[i], ax[i]) for i in range(pp.n)])
 
 
+def _with_plane(agg, run):
+    """run() with the package's aggregation plane on; returns its result
+    and each party's multiset of span names. The plane is off again
+    afterwards (both packages' planes are process-global)."""
+    agg.set_enabled(True)
+    merged = agg.reset_aggregator()
+    try:
+        res = run()
+        names = collections.defaultdict(collections.Counter)
+        for e in merged.events():
+            names[e["pid"]][e["name"]] += 1
+        return res, dict(names)
+    finally:
+        agg.set_enabled(False)
+        agg.reset_aggregator()
+
+
 @pytest.fixture(scope="module")
 def jax_world(tmp_path_factory):
     r1cs, z = mult_chain_circuit(7, 13).finish()  # nc=13, ni=2 -> m=16
@@ -81,11 +101,12 @@ def jax_world(tmp_path_factory):
     crs = jg.pack_proving_key(pk, jp)
     a = jg.pack_from_witness(jp, z_mont[1:])
     ax = jg.pack_from_witness(jp, z_mont[ni:])
-    res = _round(jnet.simulate_network_round, jg.distributed_prove_party,
-                 jp, crs, qs, a, ax)
+    res, spans = _with_plane(jaggregate, lambda: _round(
+        jnet.simulate_network_round, jg.distributed_prove_party,
+        jp, crs, qs, a, ax))
     return dict(r1cs=r1cs, z=z, path=path, pk=pk, qs=qs, crs=crs, a=a,
                 ax=ax, res=res, proof=jg.reassemble_proof(res[0], pk),
-                pubs=z[1:ni], dealer=dealer, jp=jp)
+                pubs=z[1:ni], dealer=dealer, jp=jp, spans=spans)
 
 
 def _tensors(value):
@@ -178,10 +199,11 @@ def port_world(jax_world):
         mp.setattr(tnet.LocalSimNet, "_send_impl", _recording_send(sent))
         mp.setattr(tprove, "d_msm", _recording_d_msm(msms))
         _count_calls(mp, round_routes, routes)
-        res = _round(tnet.simulate_network_round,
-                     port.distributed_prove_party, pp, crs, qs, a, ax)
+        res, spans = _with_plane(aggregate, lambda: _round(
+            tnet.simulate_network_round, port.distributed_prove_party,
+            pp, crs, qs, a, ax))
     return dict(pk=pk, pp=pp, z_mont=z_mont, comp=comp, qs=qs, crs=crs,
-                a=a, ax=ax, res=res, sent=sent, msms=msms,
+                a=a, ax=ax, res=res, sent=sent, msms=msms, spans=spans,
                 pack_routes=pack_routes,
                 round_routes=round_routes,
                 proof=port.reassemble_proof(res[0], pk))
@@ -192,6 +214,19 @@ def test_port_takes_the_card_routes(port_world):
     4 local tree MSMs and the king's 4 unpacks through ladder_apply."""
     assert port_world["pack_routes"] == {"ladder_apply": 5}
     assert port_world["round_routes"] == {"msm_tree": 32, "ladder_apply": 4}
+
+
+def test_round_spans_per_party_equal_the_jax_round(jax_world, port_world):
+    """Both rounds ran with the aggregation plane on: every party's span
+    names (prove.party, prove.h/A/B/C, dfft.*, dmsm, net.*), each with
+    its count, are the JAX round's, one track per party."""
+    got, want = port_world["spans"], jax_world["spans"]
+    assert sorted(got) == sorted(want) == list(range(2 * L * 2))
+    assert got == want
+    assert {"prove.party", "prove.h", "prove.A", "prove.B", "prove.C",
+            "dfft.fft", "dfft.ifft", "dmsm", "net.gather_to_king",
+            "net.scatter_from_king", "net.king_compute"} <= set(got[0])
+    assert all(c["prove.party"] == 1 for c in got.values())
 
 
 def test_qap_shares_match_jax_limb_for_limb(jax_world, port_world):
