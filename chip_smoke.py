@@ -104,9 +104,10 @@ result line):
      bytes and ms, the phase split beside phase 4's key's, and the fold's
      ms split (device prepare_inputs, host fold, pairings) beside single
      verifies;
- 11. the batch and mesh provers, all n = 8 parties (l = 2) on one tensor
-     axis of the card, and the job service below its HTTP layer, on phase
-     4's circuit: (a) 8 distinct SHA-256 statements (phase 10's) proved
+ 11. the batch and mesh provers, the n = 8 parties (l = 2) on one tensor
+     axis of the card for (a)-(c) and split over device shards for
+     (d)-(h), and the job service below its HTTP layer, on phase 4's
+     circuit: (a) 8 distinct SHA-256 statements (phase 10's) proved
      in ONE batch by prove_batch through build_batch_mesh_prover over the
      CRS phase 6 packed from the loaded key (one batched stage-1 d_fft,
      the king's tails once, n * (3B + B) = 256 local tree MSMs in batched
@@ -121,9 +122,17 @@ result line):
      executions with no BatchFault, each proof equal to prove_single's;
      then, batching off, one "prove" job (kernels 1, 3 and 4) and one
      "mpc_prove" job through the per-job funnel, both equal to
-     prove_single's. Logs the batch wall and per-proof time beside phase
-     6's round, the split, device busy ms, peak memory, the jobs' phases
-     and the scheduler's stats;
+     prove_single's; (d) mesh_prove_zk at r, s != 0 over 1, 2 and 8
+     shards on the card, each equal to prove_single(r, s) (wall ms,
+     device-busy ms, launches, bytes gathered and scattered per k); (e)
+     prove_batch of 2 jobs over 4 shards, equal to prove_single's; (f)
+     _mesh_dfft and _mesh_dmsm_batched at m = 16 over the shards (card,
+     cpu), equal limb for limb to the one-shard mesh on the card; (g)
+     examples/multichip.run(8), its JAX line and one shard a party on
+     the card; (h) with two or more
+     cards, (d) at k = 2 over two cards, else "cards: 1". Logs the batch
+     wall and per-proof time beside phase 6's round, the split, device
+     busy ms, peak memory, the jobs' phases and the scheduler's stats;
  12. the serving plane over HTTP on localhost (api/server.py, api/cli.py,
      fleet/, telemetry/profiler.py), on phase 4's circuit and witness:
      replica 1, an ApiServer on the card with batching off, runs
@@ -173,7 +182,8 @@ own path: phase 4 for the 8-word kernels, phase 7 for the 12-word ones;
 launches_mpc, launches_bls and launches_mpc64 on the MPC, BLS and n = 64
 MPC paths; launches_star, summed over the ranks of phase 9's SHA-256
 star; launches_zkey over phase 10; launches_batch over phase 11's batch
-of 8 (kernels 1-3), launches_service_prove over its per-job prove job
+of 8 (kernels 1-3), launches_shards over its sharded runs (d) at k > 1,
+(e), (f), (g) and (h), launches_service_prove over its per-job prove job
 (kernels 1, 3 and 4), launches_http over phase 12 (kernels 1-4),
 launches_perf over phase 13 (every kernel), launches_workloads over
 phase 14 (the 8-word kernels); ms,
@@ -191,6 +201,7 @@ from __future__ import annotations
 
 import functools
 import importlib
+import io
 import json
 import os
 import re
@@ -200,7 +211,7 @@ import sys
 import tempfile
 import time
 import types
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext, redirect_stdout
 
 from distributed_groth16_tpu_torch.telemetry.roofline import (
     FQ_MULS, HBM_BYTES_PER_S, imad_peak, bound as roofline_bound,
@@ -2229,6 +2240,247 @@ def counted_batches():
         batch_prover.BatchProver.run_batch = run
 
 
+@contextmanager
+def copy_bytes():
+    """While active, the mesh's gathers and scatters (parallel/mesh.py
+    `_gather`, `_scatter`) are counted: yields {"gathered", "scattered",
+    "peer"}, the bytes of the blocks of shards other than the king's that
+    a gather brings onto the king's device and a scatter sends back, and
+    of those the bytes that crossed between two distinct devices."""
+    from distributed_groth16_tpu_torch.parallel import mesh as pmesh
+
+    seen = {"gathered": 0, "scattered": 0, "peer": 0}
+    gather, scatter = pmesh._gather, pmesh._scatter
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    def counted_gather(blocks):
+        for b in blocks[1:]:
+            seen["gathered"] += nbytes(b)
+            if b.device != blocks[0].device:
+                seen["peer"] += nbytes(b)
+        return gather(blocks)
+
+    def counted_scatter(x, devices):
+        out = scatter(x, devices)
+        for b in out[1:]:
+            seen["scattered"] += nbytes(b)
+            if b.device != x.device:
+                seen["peer"] += nbytes(b)
+        return out
+
+    pmesh._gather, pmesh._scatter = counted_gather, counted_scatter
+    try:
+        yield seen
+    finally:
+        pmesh._gather, pmesh._scatter = gather, scatter
+
+
+# phase 11's shard counts: the zk mesh proof over k shards of the n = 8
+# parties (k = 1 is the one-shard path (b) runs), the batch over k = 4
+SHARD_KS = (1, 2, 8)
+SHARD_BATCH_K = 4
+MULTICHIP_N = 8  # (g)'s parties, one a shard
+# (f)'s d_msm scalars are below 2^SHARD_SCALAR_BITS: its 8-point MSMs
+# take msm_batched's plain ladder, one step a scalar bit, and on the CPU
+# shard a full 254-step ladder costs ~15 s of the script's time limit
+SHARD_SCALAR_BITS = 16
+# the kernels the sharded paths must launch (kernel 4 is not on a mesh)
+SHARD_KERNELS = ("limb_add_g1", "limb_add_g2", "limb_double_g1",
+                 "limb_double_g2", "limb_horner_g1", "limb_horner_g2")
+
+
+def phase_shards(dev, ctx, pp, crs, inp, r, s, want_zk, z_monts, singles):
+    """Phase 11 (d)-(f), (h): the parties mesh split over device shards
+    (parallel/mesh.py), on phase 4's circuit with phase 6's CRS.
+    (d) mesh_prove_zk at r, s != 0 over k in SHARD_KS shards of the
+    n = 8 parties on `dev` (k = 1: one shard), each proof equal to
+    prove_single(r, s)'s bytes (`want_zk`), each run under a device-only
+    trace: for each k the wall ms, the device-busy ms, the launches per
+    kernel and the bytes gathered and scattered in the round.
+    (e) prove_batch of the first two statements over SHARD_BATCH_K
+    shards, equal to prove_single's proofs (`singles`).
+    (f) _mesh_dfft (the inverse, re-laid out and padded to 2m, and the
+    forward left clear) and _mesh_dmsm_batched at m = 16, n = 8 over the
+    shards (dev, cpu), each equal to the one-shard mesh on `dev` limb for
+    limb.
+    (g) examples/multichip.run(8): the zk step at m = 16 over 8 shards,
+    one party a shard on the cards, printing the JAX line.
+    (h) the cards: with two or more, (d) at k = 2 over two cards; with
+    one, the shards share it.
+    Counters zeroed before each run of (d) at k > 1 and of (e)-(h), read
+    after; their sum is returned."""
+    import numpy as np
+    import torch
+
+    from distributed_groth16_tpu_torch.examples.nonlocal_sha256 import (
+        proof_bytes,
+    )
+    from distributed_groth16_tpu_torch.models.groth16 import mesh_prover
+    from distributed_groth16_tpu_torch.ops import _cuda
+    from distributed_groth16_tpu_torch.ops.curve import g1
+    from distributed_groth16_tpu_torch.ops.field import fr
+    from distributed_groth16_tpu_torch.ops.ntt import domain
+    from distributed_groth16_tpu_torch.parallel import mesh as pmesh
+    from distributed_groth16_tpu_torch.scheduler import batch_prover
+
+    pk, comp = ctx["pk"], ctx["comp"]
+    m, n = pk.domain_size, pp.n
+    total = {k: 0 for k in _cuda.KERNELS}
+
+    def counted(fn, trace=False):
+        """fn() with the counters zeroed before and read after: (result,
+        {wall_ms, device_busy_ms, launches, gathered, scattered, peer});
+        with trace, under a device-only trace (busy ms on a card)."""
+        for kern in _cuda.KERNELS.values():
+            kern.launches = 0
+        sync(dev)
+        traced = trace and dev.type == "cuda"
+        with copy_bytes() as moved, (
+                kernel_trace(host_ops=False) if traced
+                else nullcontext({"busy_ms": None})) as tr:
+            t0 = time.perf_counter()
+            out = fn()
+            sync(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+        got = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        return out, dict(wall_ms=wall, device_busy_ms=tr["busy_ms"],
+                         launches={k: v for k, v in got.items() if v},
+                         **moved)
+
+    def add(launches):
+        for key, v in launches.items():
+            total[key] += v
+
+    def zk_over(mesh):
+        return mesh_prover.mesh_prove_zk(pp, m, mesh, inp, pk, r, s)
+
+    # (d) the zk mesh proof over k shards of the card
+    per_k = {}
+    for k in SHARD_KS:
+        mesh = pmesh.PartyMesh((dev,) * k, n)
+        proof, per_k[k] = counted(lambda: zk_over(mesh), trace=True)
+        if proof_bytes(proof) != want_zk:
+            raise AssertionError(f"mesh_prove_zk over {k} shards differs "
+                                 "from prove_single(r, s)")
+        if k > 1:
+            add(per_k[k]["launches"])
+    log("shards (d): mesh_prove_zk at r, s != 0 over k shards of "
+        f"{dev}, each equal to prove_single(r, s): " + json.dumps(per_k))
+
+    # (e) the batch prover over SHARD_BATCH_K shards
+    mesh = pmesh.PartyMesh((dev,) * SHARD_BATCH_K, n)
+    proofs, info = counted(
+        lambda: batch_prover.prove_batch(pk, comp, pp, mesh, crs, z_monts))
+    for j, (got, want) in enumerate(zip(proofs, singles)):
+        if proof_bytes(got) != proof_bytes(want):
+            raise AssertionError(f"batch proof {j} over {SHARD_BATCH_K} "
+                                 "shards differs from prove_single's")
+    add(info["launches"])
+    log("shards (e): " + json.dumps(dict(
+        batch=len(proofs), shards=SHARD_BATCH_K, **info)))
+
+    # (f) two distinct devices, (dev, cpu), against the one-shard mesh
+    cpu = torch.device("cpu")
+    one, mixed = pmesh.make_mesh(n, dev), pmesh.PartyMesh((dev, cpu), n)
+    small, B = 16, 2
+    rng = np.random.default_rng(14)
+
+    def shares(shape, bits=254):
+        """Fr elements below 2^bits drawn with numpy, Montgomery on dev."""
+        raw = rng.integers(0, 2**63, size=(int(np.prod(shape)), 4),
+                           dtype=np.int64)
+        ints = [int.from_bytes(v.tobytes(), "little") % fr().p
+                % (1 << bits) for v in raw]
+        return fr().encode(np.array(ints, dtype=object).reshape(shape), dev)
+
+    def consts(size):
+        d = domain(size)
+        return ({x: d._live_wpows(x) for x in (dev, cpu)},
+                {x: torch.as_tensor(d._size_inv, device=x)
+                 for x in (dev, cpu)})
+
+    (w16, inv16), (w32, _) = consts(small), consts(2 * small)
+    x = shares((n, B, 3, small // pp.l))
+    y = shares((n, B, 3, 2 * small // pp.l))
+    npts = min(small // pp.l, int(crs[0].s.shape[0]))
+    bases = torch.stack([c.s[:npts] for c in crs])[:, None]
+    sc = shares((n, B, npts), SHARD_SCALAR_BITS)
+    checks = {}
+
+    def both(fn):
+        want = fn(one)
+        got, checks[fn.__name__] = counted(lambda: fn(mixed))
+        add(checks[fn.__name__]["launches"])
+        if got.device != dev or not torch.equal(got, want):
+            raise AssertionError(f"{fn.__name__} over ({dev}, cpu) differs "
+                                 "from the one-shard mesh")
+
+    def dfft_inverse(me):
+        return me.gather(pmesh._mesh_dfft(
+            me.shard(x), pp, 4, True, True, 2, False, False, w16, inv16))
+
+    def dfft_forward_clear(me):
+        return pmesh._mesh_dfft(me.shard(y), pp, 5, False, False, 1, False,
+                                True, w32, None)
+
+    def dmsm_batched(me):
+        return pmesh._mesh_dmsm_batched(g1(), me.shard(bases), me.shard(sc),
+                                        pp)
+
+    for fn in (dfft_inverse, dfft_forward_clear, dmsm_batched):
+        both(fn)
+    if dev != cpu and min(c["peer"] for c in checks.values()) == 0:
+        raise AssertionError("the (dev, cpu) mesh moved no bytes between "
+                             "its devices")
+    log(f"shards (f): m = {small}, n = {n} over ({dev}, cpu) equal to the "
+        "one-shard mesh limb for limb: " + json.dumps(checks))
+
+    # (g) the multi-device dry run, one party a shard
+    res, info = counted(lambda: multichip_dry_run(dev))
+    add(info["launches"])
+    log("shards (g): " + json.dumps(dict(res, **info)))
+
+    # (h) the cards this machine has
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards >= 2:
+        mesh = pmesh.PartyMesh(
+            tuple(torch.device("cuda", j) for j in range(2)), n)
+        proof, info = counted(lambda: zk_over(mesh), trace=True)
+        if proof_bytes(proof) != want_zk:
+            raise AssertionError("mesh_prove_zk over two cards differs")
+        add(info["launches"])
+        log("shards (h): " + json.dumps(dict(
+            cards=cards, shards=[str(d) for d in mesh.devices], **info)))
+    else:
+        log(f"shards (h): cards: {cards}; the shards of (d), (e) and (g) "
+            "share one device, so no copy crossed between cards")
+    return total
+
+
+def multichip_dry_run(dev, n=MULTICHIP_N) -> dict:
+    """Phase 11 (g): examples/multichip.run(n) with its shards on `dev`'s
+    kind of device; checks the JAX line it prints and one shard a party
+    (card j mod the card count) with the cores on the king. Returns
+    run()'s dict."""
+    from distributed_groth16_tpu_torch.examples import multichip
+
+    text = io.StringIO()
+    with redirect_stdout(text):
+        res = multichip.run(n, dev)
+    if (f"dryrun_multichip: n={n} parties (l={n // 4}) over {n}-device "
+            "mesh") not in text.getvalue():
+        raise AssertionError("multichip printed no JAX line: "
+                             + text.getvalue()[-2000:])
+    want = [str(d) for d in multichip.shard_devices(n, dev)]
+    if res["shards"] != want or res["output_device"] != want[0]:
+        raise AssertionError(f"multichip shards {res['shards']}, "
+                             f"expected {want}")
+    log("shards (g): " + text.getvalue().strip())
+    return res
+
+
 def phase_batch(dev, ctx, statement=fold_statement, B=8, small=3,
                 n_jobs=8, batch_max=4):
     """Phase 11: the batch and mesh provers with the n = 8 parties on one
@@ -2250,7 +2502,9 @@ def phase_batch(dev, ctx, statement=fold_statement, B=8, small=3,
     prove_single's; then, batching off, one "prove" job (counters zeroed
     before it: kernel 4's launches) and one "mpc_prove" job through the
     per-job funnel, both equal to prove_single's.
-    Returns the launch counts of (a)'s B-batch and of (c)'s per-job prove."""
+    Then (d)-(h), the mesh over device shards (phase_shards).
+    Returns the launch counts of (a)'s B-batch and of (c)'s per-job prove,
+    (a)'s kernel device ms, and the launches of (d)-(h)."""
     import numpy as np
     import torch
 
@@ -2415,12 +2669,17 @@ def phase_batch(dev, ctx, statement=fold_statement, B=8, small=3,
     t0 = time.perf_counter()
     zk = mesh_prover.mesh_prove_zk(pp, m, mesh, inp, pk, r, s)
     t_zk = (time.perf_counter() - t0) * 1e3
-    if proof_bytes(zk) != proof_bytes(prove_single(pk, comp, zm, r=r, s=s)):
+    want_zk = proof_bytes(prove_single(pk, comp, zm, r=r, s=s))
+    if proof_bytes(zk) != want_zk:
         raise AssertionError("mesh_prove_zk differs from prove_single(r, s)")
     if not verify(pk.vk, zk, ctx["pubs"]):
         raise AssertionError("mesh_prove_zk's proof does not verify")
     log(f"batch path (b): mesh_prove_zk at r, s != 0 equals "
         f"prove_single(r, s), {t_zk:.1f} ms")
+
+    # (d)-(h) the mesh over device shards
+    launches_shards = phase_shards(dev, ctx, pp, crs, inp, r, s, want_zk,
+                                   z_monts[:2], singles[:2])
 
     # (c) the service on the card
     with tempfile.TemporaryDirectory() as tmp:
@@ -2484,15 +2743,15 @@ def phase_batch(dev, ctx, statement=fold_statement, B=8, small=3,
         prove_ms=t_one, prove_phases=one.result["phases"],
         mpc_prove_ms=t_mpc, mpc_prove_phases=mpc.result["phases"],
         launches_prove_job=launches_job)))
-    log(f"batch: {B} + {small} batched proofs, the zk mesh proof and "
-        f"{n_jobs + 2} service jobs equal prove_single's")
-    return launches, launches_job, per_kernel
+    log(f"batch: {B} + {small} batched proofs, the zk mesh proof over "
+        f"1, 2 and 8 shards and {n_jobs + 2} service jobs equal "
+        "prove_single's")
+    return launches, launches_job, per_kernel, launches_shards
 
 
 def artifact_names(blob: bytes) -> tuple:
     """The event names of a profiler artifact's Chrome trace and the
     kernels-line rows of its device kernels."""
-    import io
     import tarfile
 
     with tarfile.open(fileobj=io.BytesIO(blob)) as tar:
@@ -3201,7 +3460,12 @@ def main() -> int:
     lap("phase 9")
     launches_zkey = phase_zkey(dev, ctx)
     lap("phase 10")
-    launches_batch, launches_job, per_batch_ms = phase_batch(dev, ctx)
+    launches_batch, launches_job, per_batch_ms, launches_shards = \
+        phase_batch(dev, ctx)
+    for key in SHARD_KERNELS:
+        if launches_shards[key] == 0:
+            raise AssertionError(f"the sharded paths never launched {key}")
+    log("shards: " + json.dumps(dict(launches_shards=launches_shards)))
     lap("phase 11")
     launches_http = phase_http(dev, ctx)
     lap("phase 12")
@@ -3234,6 +3498,7 @@ def main() -> int:
             launches_star=launches_star[key],
             launches_zkey=launches_zkey[key],
             launches_batch=launches_batch[key],
+            launches_shards=launches_shards[key],
             launches_service_prove=launches_job[key],
             launches_http=launches_http[key],
             launches_perf=launches_perf[key],
@@ -3270,7 +3535,7 @@ def main() -> int:
         if (row["launches"] + row["launches_mpc"] + row["launches_bls"]
                 + row["launches_mpc64"] + row["launches_star"]
                 + row["launches_zkey"] + row["launches_batch"]
-                + row["launches_service_prove"]
+                + row["launches_shards"] + row["launches_service_prove"]
                 + row["launches_http"] + row["launches_perf"]
                 + row["launches_workloads"]) == 0:
             raise AssertionError(f"no path launched {key}")

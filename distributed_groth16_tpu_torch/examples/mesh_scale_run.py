@@ -1,21 +1,24 @@
 """Mesh-prover scale run — the port of the JAX package's
 scripts/mesh_scale_run.py: the FULL proving step of the mesh prover
-(models/groth16/mesh_prover.py) at a real domain size, with all n = 8
-parties on one tensor axis of one device (parallel/mesh.py), checked
-against the single-node proof.
+(models/groth16/mesh_prover.py) at a real domain size over the n = 8
+parties' mesh (parallel/mesh.py), checked against the single-node proof.
 
   python -m distributed_groth16_tpu_torch.examples.mesh_scale_run \\
-      [--m 4096] [--check] [--device cpu]
+      [--m 4096] [--check] [--device cpu] [--devices cuda:0,cuda:1,...]
 
 The flags, defaults and printed lines are the JAX script's, plus
---device (default cuda; only an explicit cpu runs on the CPU). The last
-output line is JSON: run()'s dict.
+--device (default cuda; only an explicit cpu runs on the CPU) and
+--devices. The last output line is JSON: run()'s dict.
 
 Departures from the JAX script:
   * the JAX mesh puts one party on each of 8 devices, forced on the host
     with --xla_force_host_platform_device_count=8 and pinned to the CPU
-    (jax_platforms); the port's mesh holds all 8 parties on --device, so
-    neither is needed. setup_compile_cache is gone (no XLA cache);
+    (jax_platforms). The port's default mesh is one shard holding all 8
+    parties on --device; --devices gives a comma list with one party an
+    entry, as make_mesh_from_devices takes it (8 entries; they may
+    repeat, e.g. cpu,cpu,... or cuda:0 eight times), and the key, the
+    circuit and the inputs stay on --device, the king's. Nothing forces
+    virtual devices. setup_compile_cache is gone (no XLA cache);
   * nothing is jitted: "mesh prove (first call)" holds the first use of
     the kernels and tables where JAX's held the compile;
   * every phase ends in torch.cuda.synchronize().
@@ -45,13 +48,14 @@ from ..models.groth16 import (
 from ..models.groth16.mesh_prover import MeshProverInputs, mesh_prove
 from ..models.groth16.prove import PartyProofShare
 from ..ops.field import fr
-from ..parallel.mesh import make_mesh
+from ..parallel.mesh import make_mesh, make_mesh_from_devices
 from ..parallel.pss import pss
 from ..utils.timers import PhaseTimings, phase
 from ._star import device_stats, drain, open_device, reset_peak
 
 
-def run(m: int = 4096, check: bool = False, device=None) -> dict:
+def run(m: int = 4096, check: bool = False, device=None,
+        devices=None) -> dict:
     dev = open_device(device)
     reset_peak(dev)
     timings = PhaseTimings()
@@ -88,7 +92,11 @@ def run(m: int = 4096, check: bool = False, device=None) -> dict:
         drain(dev)
         del qap_shares, crs
 
-    mesh = make_mesh(pp.n, dev)
+    mesh = (make_mesh(pp.n, dev) if devices is None
+            else make_mesh_from_devices(devices))
+    if mesh.n != pp.n:
+        raise ValueError(f"--devices names {mesh.n} parties, the mesh "
+                         f"prover runs n = {pp.n}")
     with phase("mesh prove (first call)", timings):
         pa, pb, pc = mesh_prove(pp, m, mesh, inp)
         drain(dev)
@@ -114,7 +122,7 @@ def run(m: int = 4096, check: bool = False, device=None) -> dict:
     for k, v in timings.as_millis().items():
         print(f"  {k:34s} {v:12.1f}")
     out.update(phases_ms=timings.as_millis(), device=str(dev),
-               **device_stats(dev))
+               shards=[str(d) for d in mesh.devices], **device_stats(dev))
     return out
 
 
@@ -125,8 +133,12 @@ def main(argv=None) -> int:
                    help="verify the proof cores against the host oracle")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
+    p.add_argument("--devices", default=None,
+                   help="comma list of the shards' devices, one party an "
+                        "entry (default: one shard on --device)")
     args = p.parse_args(argv)
-    res = run(args.m, args.check, args.device)
+    res = run(args.m, args.check, args.device,
+              None if args.devices is None else args.devices.split(","))
     print(json.dumps(res))
     return 0 if res["ok"] else 1
 

@@ -2,16 +2,19 @@
 distributed_groth16_tpu/models/groth16/mesh_prover.py.
 
 The whole distributed proving round of groth16/examples/sha256.rs:26-99
-(the h-poly FFT pipelines and the A/B/C MSMs) over the parties held as
-axis 0 of one tensor on one card (parallel/mesh.py), where the JAX package
-runs it as one jitted shard_map program over a "parties" mesh axis. The
-star's network rounds vanish: the king's input is the stacked tensor.
+(the h-poly FFT pipelines and the A/B/C MSMs) over the parties split into
+device shards (parallel/mesh.py: one process drives every shard), where
+the JAX package runs it as one jitted shard_map program over a "parties"
+mesh axis. The star's network rounds become the mesh's gather onto the
+king's device and scatter back; on a one-shard mesh both are the
+identity.
 
 The builders return plain closures (nothing is jitted); they keep the JAX
 names because the batch prover's ProverCache stores what they return.
-Inputs and outputs keep the JAX package's global shapes: every output has
-the leading party axis, an `expand` view of the one clear result, so
-`pa[0, j]` indexes as in JAX.
+Inputs are the JAX package's global (n, ...) shapes, on any device (the
+closures shard them on entry), or already sharded by `PartyMesh.shard`.
+Every output has the leading party axis, an `expand` view of the one clear
+result on the king's device, so `pa[0, j]` indexes as in JAX.
 """
 
 from __future__ import annotations
@@ -49,29 +52,33 @@ class MeshProverInputs:
     h: torch.Tensor | None = None  # (n, c_a, 3, 16) b_g1_query shares (zk)
 
 
-def _transform_consts(m: int, device):
+def _transform_consts(m: int, devices) -> tuple:
+    """The d_fft twiddles of the m and 2m domains and 1/m, each a
+    {device: tensor} dict over the mesh's devices."""
     dom, dom2 = domain(m), domain(2 * m)
+    devs = dict.fromkeys(devices)
     return (
-        dom._live_wpows(device),
-        dom2._live_wpows(device),
-        torch.as_tensor(dom._size_inv, device=device),
+        {d: dom._live_wpows(d) for d in devs},
+        {d: dom2._live_wpows(d) for d in devs},
+        {d: torch.as_tensor(dom._size_inv, device=d) for d in devs},
     )
 
 
-def _h_share(qabc, pp: PackedSharingParams, logm: int, wpows_m, wpows_2m,
-             size_inv_m):
-    """ext_wit::h over stacked (n, ..., 3, m/l, 16) QAP shares: the
-    inverse transforms re-laid out and padded to 2m, the forward
-    transforms left clear on the king, the king's combine. Returns the
-    (n, ..., m/l, 16) h shares."""
+def _h_share(qabc, pp: PackedSharingParams, logm: int, mesh: PartyMesh,
+             wpows_m, wpows_2m, size_inv_m):
+    """ext_wit::h over the shards of stacked (n, ..., 3, m/l, 16) QAP
+    shares: the inverse transforms re-laid out and padded to 2m, the
+    forward transforms left clear on the king, the king's combine
+    scattered back. Returns the shards of the (n, ..., m/l, 16) h
+    shares."""
     coeffs = _mesh_dfft(
         qabc, pp, logm, True, True, 2, False, False, wpows_m, size_inv_m,
-    )  # (n, ..., 3, 2m/l, 16)
+    )  # shards of (n, ..., 3, 2m/l, 16)
     evals = _mesh_dfft(
         coeffs, pp, logm + 1, False, False, 1, False, True, wpows_2m, None,
-    )  # king_clear: (..., 3, 2m, 16)
+    )  # king_clear: (..., 3, 2m, 16) on the king
     p, q, w = evals[..., 0, :, :], evals[..., 1, :, :], evals[..., 2, :, :]
-    return king_combine_h(p, q, w, pp)
+    return mesh.scatter(king_combine_h(p, q, w, pp))
 
 
 def _pad_bases(x, cmax: int):
@@ -94,43 +101,52 @@ def _expand_parties(x, n: int):
     return x.unsqueeze(0).expand((n,) + x.shape)
 
 
+def _cmax(s_q, w_q, u_q) -> int:
+    """The common length of the three G1 queries' shards."""
+    return max(s_q[0].shape[1], w_q[0].shape[1], u_q[0].shape[1])
+
+
 def build_mesh_prover(pp: PackedSharingParams, m: int, mesh: PartyMesh,
                       zk: bool = False):
     """Returns f(qa, qb, qc, a_sh, ax_sh, s, u, v, w[, h]) computing the
-    clear proof cores (pi_a, pi_b, pi_c) from MeshProverInputs' tensors,
-    each (n, ...) with every row equal.
+    clear proof cores (pi_a, pi_b, pi_c) from MeshProverInputs' tensors
+    (or their shards), each (n, ...) with every row equal.
 
     zk=True also computes the H-query MSM (b_g1_query shares · a_share)
     as a 4th row of the batched G1 d_msm and returns it 4th; it feeds the
     r-weighted C term. The r/s randomization itself is host arithmetic on
     the clear cores (mesh_prove_zk), as in the JAX package."""
     logm = m.bit_length() - 1
-    consts = _transform_consts(m, mesh.device)
+    consts = _transform_consts(m, mesh.devices)
 
     def step(qa, qb, qc, a_sh, ax_sh, s_q, u_q, v_q, w_q, h_q=None):
+        qa, qb, qc, a_sh, ax_sh, s_q, u_q, v_q, w_q = map(
+            mesh.shard, (qa, qb, qc, a_sh, ax_sh, s_q, u_q, v_q, w_q))
         # the a/b/c pipelines are shape-identical: one batched transform
-        h_share = _h_share(
-            torch.stack([qa, qb, qc], dim=1), pp, logm, *consts
-        )  # (n, m/l, 16)
-        # the three G1 MSMs as one batched d_msm over a common length
-        cmax = max(s_q.shape[1], w_q.shape[1], u_q.shape[1])
-        g1_bases = [_pad_bases(s_q, cmax), _pad_bases(w_q, cmax),
-                    _pad_bases(u_q, cmax)]
-        g1_scalars = [_pad_scalars(a_sh, cmax), _pad_scalars(ax_sh, cmax),
-                      _pad_scalars(h_share, cmax)]
         if zk:
-            g1_bases.append(_pad_bases(h_q, cmax))
-            g1_scalars.append(_pad_scalars(a_sh, cmax))
-        out = _mesh_dmsm_batched(
-            g1(), torch.stack(g1_bases, dim=1),
-            torch.stack(g1_scalars, dim=1), pp,
-        )
+            h_q = mesh.shard(h_q)
+        qabc = tuple(torch.stack(t, dim=1) for t in zip(qa, qb, qc))
+        h_share = _h_share(qabc, pp, logm, mesh, *consts)  # (n, m/l, 16)
+        # the three G1 MSMs as one batched d_msm over a common length
+        cmax = _cmax(s_q, w_q, u_q)
+        bases, scalars = [], []
+        for j in range(mesh.k):
+            g1_bases = [_pad_bases(s_q[j], cmax), _pad_bases(w_q[j], cmax),
+                        _pad_bases(u_q[j], cmax)]
+            g1_scalars = [_pad_scalars(a_sh[j], cmax),
+                          _pad_scalars(ax_sh[j], cmax),
+                          _pad_scalars(h_share[j], cmax)]
+            if zk:
+                g1_bases.append(_pad_bases(h_q[j], cmax))
+                g1_scalars.append(_pad_scalars(a_sh[j], cmax))
+            bases.append(torch.stack(g1_bases, dim=1))
+            scalars.append(torch.stack(g1_scalars, dim=1))
+        out = _mesh_dmsm_batched(g1(), tuple(bases), tuple(scalars), pp)
         pi_a, c_w, c_u = out[0], out[1], out[2]
         pi_b = _mesh_dmsm(g2(), v_q, a_sh, pp)
         pi_c = g1().add(c_w, c_u)
-        n = qa.shape[0]
         res = [pi_a, pi_b, pi_c] + ([out[3]] if zk else [])
-        return tuple(_expand_parties(x, n) for x in res)
+        return tuple(_expand_parties(x, mesh.n) for x in res)
 
     return step
 
@@ -149,7 +165,8 @@ def build_batch_mesh_prover(pp: PackedSharingParams, m: int,
     cmax points). Deterministic (r = s = 0) cores only: the service's
     proving path, so each demuxed proof equals the sequential route's.
 
-    Returns f(qabc, a_share, ax_share, s, u, v, w) with shapes
+    Returns f(qabc, a_share, ax_share, s, u, v, w) with shapes (each a
+    tensor or its shards)
         qabc     (n, B, 3, m/l, 16)   stacked per-job qap a/b/c shares
         a_share  (n, B, c_a, 16)      per-job packed witness shares
         ax_share (n, B, c_w, 16)
@@ -157,32 +174,35 @@ def build_batch_mesh_prover(pp: PackedSharingParams, m: int,
     producing (n, B, ...) clear cores (pi_a, pi_b, pi_c), every party row
     equal."""
     logm = m.bit_length() - 1
-    consts = _transform_consts(m, mesh.device)
+    consts = _transform_consts(m, mesh.devices)
 
     def step(qabc, a_sh, ax_sh, s_q, u_q, v_q, w_q):
-        n = qabc.shape[0]
-        if qabc.shape[1] != batch:
+        qabc, a_sh, ax_sh, s_q, u_q, v_q, w_q = map(
+            mesh.shard, (qabc, a_sh, ax_sh, s_q, u_q, v_q, w_q))
+        if qabc[0].shape[1] != batch:
             raise ValueError(
-                f"prover built for batch {batch}, got {qabc.shape[1]}"
+                f"prover built for batch {batch}, got {qabc[0].shape[1]}"
             )
-        h_share = _h_share(qabc, pp, logm, *consts)  # (n, B, m/l, 16)
+        h_share = _h_share(qabc, pp, logm, mesh, *consts)  # (n, B, m/l, 16)
         # 3B G1 MSMs per party: entry (j, k) is job j's k-th MSM (A, C's
         # witness part, C's h part); the result's row j is job j's
-        cmax = max(s_q.shape[1], w_q.shape[1], u_q.shape[1])
-        bases3 = torch.stack(
-            [_pad_bases(s_q, cmax), _pad_bases(w_q, cmax),
-             _pad_bases(u_q, cmax)], dim=1,
-        )  # (n, 3, cmax, 3)+elem
-        g1_bases = bases3.unsqueeze(1)  # one table set for all B jobs
-        g1_scalars = torch.stack(
-            [_pad_scalars(a_sh, cmax), _pad_scalars(ax_sh, cmax),
-             _pad_scalars(h_share, cmax)], dim=2,
-        )  # (n, B, 3, cmax, 16)
-        out = _mesh_dmsm_batched(g1(), g1_bases, g1_scalars, pp)
+        cmax = _cmax(s_q, w_q, u_q)
+        bases = tuple(
+            torch.stack([_pad_bases(s, cmax), _pad_bases(w, cmax),
+                         _pad_bases(u, cmax)], dim=1).unsqueeze(1)
+            for s, w, u in zip(s_q, w_q, u_q)
+        )  # (n/k, 1, 3, cmax, 3)+elem: one table set for all B jobs
+        scalars = tuple(
+            torch.stack([_pad_scalars(a, cmax), _pad_scalars(ax, cmax),
+                         _pad_scalars(h, cmax)], dim=2)
+            for a, ax, h in zip(a_sh, ax_sh, h_share)
+        )  # (n/k, B, 3, cmax, 16)
+        out = _mesh_dmsm_batched(g1(), bases, scalars, pp)
         pi_a, c_w, c_u = out[:, 0], out[:, 1], out[:, 2]
-        pi_b = _mesh_dmsm_batched(g2(), v_q.unsqueeze(1), a_sh, pp)
+        pi_b = _mesh_dmsm_batched(
+            g2(), tuple(v.unsqueeze(1) for v in v_q), a_sh, pp)
         pi_c = g1().add(c_w, c_u)
-        return tuple(_expand_parties(x, n) for x in (pi_a, pi_b, pi_c))
+        return tuple(_expand_parties(x, mesh.n) for x in (pi_a, pi_b, pi_c))
 
     return step
 

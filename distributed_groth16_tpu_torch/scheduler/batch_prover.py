@@ -4,10 +4,11 @@ the counterpart of distributed_groth16_tpu/scheduler/batch_prover.py.
 `prove_batch` is the pure API (the correctness tests and the card's smoke
 run drive it directly): given one proving key + compiled circuit and B
 Montgomery witness assignments, it stacks the witness-dependent tensors
-along a batch axis after the party axis, runs `build_batch_mesh_prover`
-over one shared packed CRS with all n parties on one card, and demuxes B
-deterministic proofs — each byte-identical to what the sequential path
-(`prove_single` / the single-job MPC round) emits for the same witness.
+along a batch axis after the party axis on the king's device, runs
+`build_batch_mesh_prover` over one shared packed CRS placed on the mesh's
+device shards, and demuxes B deterministic proofs — each byte-identical
+to what the sequential path (`prove_single` / the single-job MPC round)
+emits for the same witness.
 
 `BatchProver` is the job-facing wrapper the scheduler drives: it reuses
 the service's `ProofExecutor` for witness resolution and the packed-CRS
@@ -74,10 +75,10 @@ class BatchFault(Exception):
 
 class ProverCache:
     """Small LRU of batch provers keyed by (circuit, l, m, padded batch
-    size, device) — one per bucket shape, as the JAX package keeps its
-    jitted programs. A port prover is a plain closure (its build only
-    places the domain twiddles on the device), so the cache is cheap;
-    its hit and miss counts feed the scheduler's stats()."""
+    size, the mesh's devices) — one per bucket shape, as the JAX package
+    keeps its jitted programs. A port prover is a plain closure (its build
+    only places the domain twiddles on the devices), so the cache is
+    cheap; its hit and miss counts feed the scheduler's stats()."""
 
     def __init__(self, capacity: int = 8):
         self.capacity = capacity
@@ -99,6 +100,23 @@ class ProverCache:
         return fn
 
 
+def prover_cache_key(circuit_id, l: int, m: int, b_pad: int,
+                     mesh) -> tuple:
+    """A ProverCache key: the bucket's shape and every shard's device, so
+    a one-shard and a k-shard prover on one card are two entries."""
+    return (circuit_id, l, m, b_pad, tuple(str(d) for d in mesh.devices))
+
+
+def shard_crs(mesh, crs_shares) -> tuple:
+    """The n parties' PartyCRS list -> their s, u, v, w shares stacked
+    over the parties and placed on the mesh's shards: four tuples of k
+    blocks."""
+    return tuple(
+        mesh.shard(torch.stack([getattr(c, f) for c in crs_shares]))
+        for f in ("s", "u", "v", "w")
+    )
+
+
 def prove_batch(
     pk,
     comp: CompiledR1CS,
@@ -111,8 +129,9 @@ def prove_batch(
     """B witnesses -> B deterministic proofs through one SPMD program.
 
     z_monts: list of (num_wires, 16) Montgomery assignments, all for the
-    circuit `comp` compiles, on the mesh's device. crs_shares: the n-party
-    packed CRS (one `pack_proving_key` result, shared across the batch).
+    circuit `comp` compiles, on the mesh's (king's) device. crs_shares:
+    the n-party packed CRS (one `pack_proving_key` result, shared across
+    the batch), placed on the mesh's shards here.
     Pass `prover` (a `build_batch_mesh_prover` result) to reuse one; its
     batch size must match the padded B. A partial batch is padded to the
     next power of two with copies of job 0, whose proofs are dropped."""
@@ -145,13 +164,9 @@ def prove_batch(
         a_sh = torch.stack(a_rows, dim=1)  # (n, B, c_a, 16)
         ax_sh = torch.stack(ax_rows, dim=1)
         t.add_tree((qabc, a_sh, ax_sh))
-    s_q = torch.stack([c.s for c in crs_shares])
-    u_q = torch.stack([c.u for c in crs_shares])
-    v_q = torch.stack([c.v for c in crs_shares])
-    w_q = torch.stack([c.w for c in crs_shares])
     if prover is None:
         prover = build_batch_mesh_prover(pp, pk.domain_size, mesh, b_pad)
-    pa, pb, pc = prover(qabc, a_sh, ax_sh, s_q, u_q, v_q, w_q)
+    pa, pb, pc = prover(qabc, a_sh, ax_sh, *shard_crs(mesh, crs_shares))
     # the batched proof-readback boundary: reassembly pulls party 0's
     # clear cores host-side, one (a, b, c) triple per real job
     with _transfer.account("d2h") as t:
@@ -217,10 +232,8 @@ class BatchProver:
                 pack_s = time.monotonic() - t0
 
                 b_pad = _next_pow2(len(good))
-                cache_key = (
-                    key.circuit_id, key.l, pk.domain_size, b_pad,
-                    str(mesh.device),
-                )
+                cache_key = prover_cache_key(
+                    key.circuit_id, key.l, pk.domain_size, b_pad, mesh)
                 t0 = time.monotonic()
                 for job in good:
                     job.note_phase("batch_prove")

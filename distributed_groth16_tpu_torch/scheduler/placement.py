@@ -3,10 +3,13 @@ the counterpart of distributed_groth16_tpu/scheduler/placement.py.
 
 The inventory (default: the CUDA devices; none raises) is leased one card
 at a time. The JAX package slices its inventory into disjoint runs of
-`n_parties` devices, one party a device; the port holds all n parties of
-a mesh on one card (parallel/mesh.py), so one lease is one card whatever
-`n_parties` is: `capacity(n)` is the number of cards (one on a
-one-card host) and `max_meshes` still caps concurrency. A batch holds a
+`n_parties` devices, one party a device; a lease's mesh here is one shard
+holding all n parties on its card (parallel/mesh.py `make_mesh`), so one
+lease is one card whatever `n_parties` is: `capacity(n)` is the number
+of cards (one on a one-card host, where the JAX policy would give 0 for
+n > 1) and `max_meshes` still caps concurrency. A mesh over several cards
+(a `PartyMesh` of k shards) is not leased: whether it proves a batch
+faster than one card does is unmeasured. A batch holds a
 `MeshLease` on its card for its whole proving round, so batches prove
 concurrently on a multi-card host instead of through one global mesh.
 

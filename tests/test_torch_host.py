@@ -84,6 +84,7 @@ PORT_MODULES = [
     "distributed_groth16_tpu_torch.examples.dmsm_bench",
     "distributed_groth16_tpu_torch.examples.dpp_test",
     "distributed_groth16_tpu_torch.examples.million",
+    "distributed_groth16_tpu_torch.examples.multichip",
     "distributed_groth16_tpu_torch.examples.local_groth_bench",
     "distributed_groth16_tpu_torch.examples.sha256",
     "distributed_groth16_tpu_torch.examples.introspect",

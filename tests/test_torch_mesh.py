@@ -249,11 +249,16 @@ def test_infinity_padding_keeps_the_tree_msm_exact():
 
 
 def test_mesh_objects_hold_all_parties_on_one_device():
-    assert mesh.make_mesh(8, CPU) == mesh.PartyMesh(CPU, 8)
-    assert mesh.make_mesh_from_devices([CPU] * 4) == mesh.PartyMesh(CPU, 4)
+    """make_mesh holds all n parties in one shard; make_mesh_from_devices
+    takes one party an entry, as the JAX package's, so [CPU] * 4 is four
+    shards of one party on one device and two devices are two shards."""
+    assert mesh.make_mesh(8, CPU) == mesh.PartyMesh((CPU,), 8)
+    assert mesh.make_mesh(8, CPU).k == 1
+    assert mesh.make_mesh_from_devices([CPU] * 4) == mesh.PartyMesh(
+        (CPU,) * 4, 4)
     with pytest.raises(RuntimeError, match="empty"):
         mesh.make_mesh_from_devices([])
-    with pytest.raises(NotImplementedError):
-        mesh.make_mesh_from_devices([CPU, torch.device("meta")])
+    two = mesh.make_mesh_from_devices([CPU, torch.device("meta")])
+    assert (two.devices, two.device) == ((CPU, torch.device("meta")), CPU)
     with pytest.raises(ValueError):
         mesh.make_mesh(0, CPU)
